@@ -61,6 +61,59 @@ def test_range_glv_step_kernel_equals_plain(dev):
     assert int(want[:, 0].sum()) > 0
 
 
+def _step_inputs():
+    """The real table, one window based above B and one based at 5 (it
+    holds the doubling lane), and a partial second window."""
+    tx, ty = tables.ig_table(B, "cpu")
+    bx, by = _points([0xABCDEF0123456789, 5])
+    rem = torch.tensor([B, B - 9], dtype=torch.int32)
+    return bx, by, tx, ty, rem
+
+
+@pytest.mark.parametrize("fmt", [AddressFormat.P2PKH, AddressFormat.P2WPKH],
+                         ids=lambda f: f.value)
+def test_range_step_kernel_c_equals_plain(dev, fmt):
+    src = {AddressFormat.P2PKH: "^1C", AddressFormat.P2WPKH: "^bc1qq"}[fmt]
+    ivs = Pattern(src).match_intervals(fmt)
+    lo, hi = (u256.as_i32(a) for a in pipeline.intervals_to_words(
+        ivs, n_slots=pipeline.interval_slot_count(len(ivs))))
+    bx, by, tx, ty, rem = _step_inputs()
+    args = (bx, by, tx, ty, lo, hi, rem)
+    before = fused.range_match.launches
+    got = fused.fused_range_mask_step(fmt, *(a.to(dev) for a in args),
+                                      glv=False)
+    torch.cuda.synchronize()
+    assert fused.range_match.launches == before + 1
+    want = fused.fused_range_mask_step(fmt, *args, glv=False)
+    assert torch.equal(got.cpu(), want)
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("src", ["c[a4]t", "a.{8}$"])
+@pytest.mark.parametrize("glv", [False, True], ids=["D", "E"])
+@pytest.mark.parametrize("fmt", [AddressFormat.P2PKH, AddressFormat.P2WPKH],
+                         ids=lambda f: f.value)
+def test_dfa_step_kernels_d_e_equal_plain(dev, fmt, glv, src):
+    """Masks and packed rows bit-equal; a.{8}$ has more than 256 states."""
+    dfa = Pattern(src).device_dfa(fmt)
+    table = torch.from_numpy(dfa.table.astype(np.int32))
+    accept = torch.from_numpy(dfa.accept.astype(np.int32))
+    bx, by, tx, ty, rem = _step_inputs()
+    cpu = (bx, by, tx, ty, table, accept)
+    gpu = tuple(a.to(dev) for a in cpu)
+    kernel = fused.glv_dfa_match if glv else fused.dfa_match
+    before = kernel.launches
+    got = fused.fused_scan_mask_step(fmt, *gpu, dfa.start, rem.to(dev), glv)
+    rows = fused.fused_scan_step(fmt, *gpu, dfa.start, rem.to(dev), glv)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(got.cpu(),
+                       fused.fused_scan_mask_step(fmt, *cpu, dfa.start, rem,
+                                                  glv))
+    assert torch.equal(rows.cpu(),
+                       fused.fused_scan_step(fmt, *cpu, dfa.start, rem, glv))
+
+
 def test_wrapper_rejects_bad_input(dev):
     bx = torch.zeros((K, 8), dtype=torch.int64, device=dev)
     tx = torch.zeros((8, B), dtype=torch.int32, device=dev)

@@ -162,7 +162,7 @@ def test_reported_variants_derive_to_matches(table, fmt):
 def test_pack_tail_orders_and_pads():
     mask = torch.zeros((2, 64), dtype=torch.int32)
     mask[0, [3, 40, 7]] = torch.tensor([1, 32, 6], dtype=torch.int32)
-    rows = fused.pack_tail(mask, torch.tensor([64, -5], dtype=torch.int32))
+    rows = fused.pack_tail(mask, torch.tensor([64, -5], dtype=torch.int32), 6)
     assert rows[0, :2].tolist() == [3, 64 * 6]
     assert rows[0, 2:6].tolist() == [40, 7, 3, -1]  # descending, -1 padded
     assert rows[0, 18:22].tolist() == [32, 6, 1, 0]

@@ -105,13 +105,23 @@ def test_stop_flag_ends_scan(p2pkh_scanner):
 
 
 @pytest.mark.parametrize("kind", ["range", "dfa"])
-def test_unported_paths_raise(p2pkh_scanner, kind):
+def test_range_and_dfa_paths_scan(p2pkh_scanner, kind):
+    """The range route (interval step, kernel C's plain version) and the
+    random DFA route (kernel E's): every match confirmed by the oracle."""
     if kind == "range":
-        pat, cfg = Pattern("^1C"), ScanConfig(start=1, end=1000)
+        pat, cfg = Pattern("^1C"), ScanConfig(start=1, end=1000, count=0)
     else:
-        pat, cfg = Pattern("q$"), ScanConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        p2pkh_scanner.scan(pat, cfg)
+        pat, cfg = Pattern("q$"), ScanConfig(count=3, in_flight=1)
+    res = p2pkh_scanner.scan(pat, cfg)
+    _assert_oracle(res.matches, pat, AddressFormat.P2PKH)
+    if kind == "range":
+        gen = AddressGenerator(AddressFormat.P2PKH)
+        want = [k for k in range(1, 1001)
+                if pat.matches(gen.generate(k.to_bytes(32, "big")).address)]
+        assert [int(m.hex, 16) for m in res.matches] == want
+        assert res.operations == 1000
+    else:
+        assert len(res.matches) == 3
 
 
 @pytest.mark.parametrize("fmt", [AddressFormat.P2TR, AddressFormat.ETHEREUM,

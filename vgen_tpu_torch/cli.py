@@ -1,9 +1,12 @@
-"""Command line of the port: generate / verify / list-devices.
+"""Command line of the port: generate / estimate / range / verify /
+list-devices.
 
-``generate`` scans on the card (``--backend cuda``, the default; with no
-visible card it exits with an error), on CPU tensors through the kernels'
-plain versions (``--backend cpu``), or with ``vgen_tpu``'s native C++
-scanner (``--no-device``).  Nothing falls back from one to another.
+``generate`` and ``range`` scan on the card (``--backend cuda``, the
+default; with no visible card they exit with an error), on CPU tensors
+through the kernels' plain versions (``--backend cpu``), or with
+``vgen_tpu``'s native C++ scanner (``--no-device``).  Nothing falls back
+from one to another.  ``estimate`` calibrates on the card only when one is
+visible.
 """
 
 from __future__ import annotations
@@ -22,11 +25,16 @@ from vgen_tpu.cli import (
     _to_vanity_results,
     cmd_verify,
     resolve_pattern_and_format,
+    resolve_range_params,
 )
+from vgen_tpu.crypto import secp256k1 as ec
 from vgen_tpu.crypto.address import AddressFormat
 from vgen_tpu.output import format_duration, format_with_commas
 from vgen_tpu.pattern import Pattern, RegexError
+from vgen_tpu.scan.checkpoint import CheckpointManager
 from vgen_tpu.scan.scanner import ScanConfig, ScanResult, StopFlag
+
+FORMATS = ["p2pkh", "p2wpkh", "p2sh-p2wpkh", "p2tr", "ethereum"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,37 +45,61 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
 
+    def add_search_args(sp, pattern_required: bool):
+        sp.add_argument("-p", "--pattern", required=pattern_required,
+                        help="Regex pattern (e.g. '^1Cat') or provider "
+                        "reference (e.g. 'boha:b1000:66')")
+        sp.add_argument("-l", "--prefix-length", type=int, default=None,
+                        help="For provider patterns: match on first N "
+                        "address chars")
+        sp.add_argument("-f", "--format", default="p2pkh", choices=FORMATS)
+        sp.add_argument("-t", "--threads", type=int, default=None,
+                        help="CPU threads for the native scanner "
+                        "(--no-device)")
+        sp.add_argument("--no-device", "--no-gpu", dest="no_device",
+                        action="store_true",
+                        help="Scan with the native C++ CPU scanner")
+        sp.add_argument("--backend", default="cuda", choices=["cuda", "cpu"],
+                        help="cuda: the CUDA kernels (a card is required); "
+                        "cpu: the same scan on CPU tensors through the "
+                        "plain versions")
+        sp.add_argument("--device-batch-size", "--gpu-batch-size",
+                        dest="device_batch_size", type=int, default=None,
+                        help="Keys per window (default 524288)")
+        sp.add_argument("--no-tui", action="store_true",
+                        help="Console output (the terminal UI is not ported "
+                        "yet)")
+        sp.add_argument("-o", "--output", default="text",
+                        choices=["text", "json", "jsonl", "csv", "minimal"])
+        sp.add_argument("--file", default=None,
+                        help="Write output to file instead of stdout")
+        sp.add_argument("--repeat", type=int, default=1,
+                        help="Repeat the search N times")
+        sp.add_argument("-q", "--quiet", action="store_true")
+
     g = sub.add_parser("generate", help="Generate vanity address matching a pattern")
-    g.add_argument("-p", "--pattern", required=True,
-                   help="Regex pattern (e.g. '^1Cat') or provider reference")
-    g.add_argument("-l", "--prefix-length", type=int, default=None,
-                   help="For provider patterns: match on first N address chars")
-    g.add_argument("-f", "--format", default="p2pkh",
-                   choices=["p2pkh", "p2wpkh", "p2sh-p2wpkh", "p2tr", "ethereum"])
+    add_search_args(g, pattern_required=True)
     g.add_argument("-i", "--ignore-case", action="store_true")
     g.add_argument("-c", "--count", type=int, default=1,
                    help="Stop after finding N matches")
-    g.add_argument("-t", "--threads", type=int, default=None,
-                   help="CPU threads for the native scanner (--no-device)")
-    g.add_argument("--no-device", "--no-gpu", dest="no_device",
-                   action="store_true",
-                   help="Scan with the native C++ CPU scanner")
-    g.add_argument("--backend", default="cuda", choices=["cuda", "cpu"],
-                   help="cuda: the CUDA kernels (a card is required); cpu: "
-                   "the same scan on CPU tensors through the plain versions")
-    g.add_argument("--device-batch-size", "--gpu-batch-size",
-                   dest="device_batch_size", type=int, default=None,
-                   help="Keys per window (default 524288)")
     g.add_argument("--cpu-batch-size", type=int, default=None)
-    g.add_argument("--no-tui", action="store_true",
-                   help="Console output (the terminal UI is not ported yet)")
-    g.add_argument("-o", "--output", default="text",
-                   choices=["text", "json", "jsonl", "csv", "minimal"])
-    g.add_argument("--file", default=None,
-                   help="Write output to file instead of stdout")
-    g.add_argument("--repeat", type=int, default=1,
-                   help="Repeat the search N times")
-    g.add_argument("-q", "--quiet", action="store_true")
+
+    e = sub.add_parser("estimate", help="Estimate difficulty of a pattern (dry run)")
+    e.add_argument("-p", "--pattern", required=True)
+    e.add_argument("-l", "--prefix-length", type=int, default=None)
+    e.add_argument("-f", "--format", default="p2pkh", choices=FORMATS)
+    e.add_argument("-i", "--ignore-case", action="store_true")
+
+    r = sub.add_parser("range", help="Scan a specific key range (Bitcoin Puzzles)")
+    add_search_args(r, pattern_required=False)
+    r.add_argument("-r", "--range", dest="range_", default=None,
+                   help="START:END hex keys (e.g. 2000:3FFF)")
+    r.add_argument("--puzzle", type=int, default=None,
+                   help="Puzzle number (sets range to [2^(n-1), 2^n-1])")
+    r.add_argument("-c", "--count", type=int, default=1,
+                   help="Stop after N matches (0 = scan entire range)")
+    r.add_argument("--checkpoint", default=None, metavar="FILE",
+                   help="Persist scan position to FILE and resume from it")
 
     v = sub.add_parser("verify", help="Verify a private key produces expected address")
     v.add_argument("-k", "--key", required=True, help="Private key (WIF or hex)")
@@ -92,7 +124,9 @@ def resolve_device(backend: str, no_device: bool) -> Optional[str]:
 
 
 def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
-               count: int, device: Optional[str], args) -> int:
+               count: int, device: Optional[str], args,
+               start: Optional[int] = None, end: Optional[int] = None,
+               checkpoint_path: Optional[str] = None) -> int:
     from vgen_tpu_torch.scan import scanner as sc
 
     try:
@@ -100,6 +134,17 @@ def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
     except RegexError as e:
         print(f"error: failed to compile pattern: {e}", file=sys.stderr)
         return 2
+    ckpt = None
+    if checkpoint_path and start is not None:
+        ckpt = CheckpointManager(
+            checkpoint_path, pattern=pattern_str, fmt=fmt.value, start=start,
+            end=end if end is not None else ec.N - 1)
+        state = ckpt.load()
+        if state is not None and not args.quiet:
+            print(f"Resuming from checkpoint: next key "
+                  f"{hex(state['next_key'])}, "
+                  f"{format_with_commas(state['operations'])} ops, "
+                  f"{len(state['match_keys'])} match(es)", file=sys.stderr)
     invalid = pat.validate_charset(fmt)
     if invalid:
         print(f"Warning: Pattern contains characters not valid in "
@@ -108,7 +153,8 @@ def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
     config = ScanConfig(
         format=fmt, count=count, threads=args.threads,
         device_batch_size=args.device_batch_size,
-        cpu_batch_size=args.cpu_batch_size, use_device=device is not None,
+        cpu_batch_size=getattr(args, "cpu_batch_size", None),
+        start=start, end=end, use_device=device is not None, checkpoint=ckpt,
     )
     stop = StopFlag()
     t0 = time.time()
@@ -140,17 +186,79 @@ def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
     return 0
 
 
-def cmd_generate(args) -> int:
-    fmt = AddressFormat.from_str(args.format)
-    pattern_str, fmt = resolve_pattern_and_format(
-        args.pattern, args.prefix_length, fmt)
+def _refuse_tui(args) -> None:
     if not args.no_tui and sys.stdout.isatty():
         raise NotImplementedError(
             "the terminal UI is not ported (ROADMAP queue 1 item 16); "
             "pass --no-tui")
+
+
+def cmd_generate(args) -> int:
+    fmt = AddressFormat.from_str(args.format)
+    pattern_str, fmt = resolve_pattern_and_format(
+        args.pattern, args.prefix_length, fmt)
+    _refuse_tui(args)
     device = resolve_device(args.backend, args.no_device)
     return run_search(pattern_str, args.ignore_case, fmt, args.count,
                       device, args)
+
+
+def cmd_range(args) -> int:
+    fmt = AddressFormat.from_str(args.format)
+    pattern_str = args.pattern if args.pattern is not None else "."
+    start, end, resolved, fmt = resolve_range_params(
+        pattern_str, args.prefix_length, fmt, args.range_, args.puzzle)
+    _refuse_tui(args)
+    device = resolve_device(args.backend, args.no_device)
+    return run_search(resolved, False, fmt, args.count, device, args,
+                      start=start, end=end, checkpoint_path=args.checkpoint)
+
+
+def cmd_estimate(args) -> int:
+    """Difficulty and the native CPU scanner's rate; with a visible card,
+    about 2 s of the port's device scan on the pattern's own route."""
+    from vgen_tpu import native
+    from vgen_tpu.scan.scanner import benchmark
+    from vgen_tpu_torch.ops import fused
+    from vgen_tpu_torch.scan import scanner as sc
+
+    fmt = AddressFormat.from_str(args.format)
+    pattern_str, fmt = resolve_pattern_and_format(
+        args.pattern, args.prefix_length, fmt)
+    try:
+        pat = Pattern(pattern_str, args.ignore_case)
+    except RegexError as e:
+        print(f"error: failed to compile pattern: {e}", file=sys.stderr)
+        return 2
+    difficulty = pat.estimate_difficulty(fmt)
+    rate = benchmark(fmt, 10_000)
+    expected = difficulty / rate if rate > 0 else float("inf")
+    print(f"Pattern: {pattern_str}")
+    print(f"Format: {fmt.display_name}")
+    print(f"Case insensitive: {str(args.ignore_case).lower()}")
+    print()
+    print(f"Estimated difficulty: 1 in {format_with_commas(difficulty)}")
+    source = ("native CPU scanner" if native.available()
+              else "CPU single thread")
+    print(f"Benchmark rate: {rate:.0f} addr/sec ({source})")
+    print(f"Expected time: {format_duration(expected)} (CPU)")
+    if not torch.cuda.is_available():
+        print("Note: no CUDA card is visible; no device calibration.")
+        return 0
+    if fmt not in fused.HASH160_FORMATS:
+        print(f"Note: the port's device scan does not cover {fmt.value} "
+              "yet (ROADMAP queue 1 items 10 and 13); no device "
+              "calibration.")
+        return 0
+    print("Calibrating on the card...", file=sys.stderr)
+    stats = sc.benchmark_device(fmt, pattern_str, min_seconds=2.0,
+                                warmup_batches=1,
+                                ignore_case=args.ignore_case)
+    drate = stats["keys_per_sec"]
+    dexpected = difficulty / drate if drate > 0 else float("inf")
+    print(f"Device rate: {drate:,.0f} keys/sec ({stats['device']})")
+    print(f"Expected time: {format_duration(dexpected)} (device)")
+    return 0
 
 
 def cmd_list_devices(args) -> int:
@@ -180,6 +288,10 @@ def run_from_args(argv: List[str]) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "generate":
         return cmd_generate(args)
+    if args.command == "range":
+        return cmd_range(args)
+    if args.command == "estimate":
+        return cmd_estimate(args)
     if args.command == "verify":
         return cmd_verify(args)
     return cmd_list_devices(args)

@@ -101,8 +101,13 @@ def load() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.vgen_batch_inverse_dx.argtypes = [p, p, p, p, i, i, i, p]
         lib.vgen_batch_inverse_dx.restype = i
-        lib.vgen_range_glv_match.argtypes = [p, p, p, p, p, p, p, i, p, p,
-                                             i, i, p]
-        lib.vgen_range_glv_match.restype = i
+        for name in ("vgen_range_glv_match", "vgen_range_match"):
+            getattr(lib, name).argtypes = [p, p, p, p, p, p, p, i, p, p, i, i,
+                                           p]
+            getattr(lib, name).restype = i
+        for name in ("vgen_dfa_match", "vgen_glv_dfa_match"):
+            getattr(lib, name).argtypes = [p, p, p, p, p, p, p, i, i, i, p, p,
+                                           i, i, p]
+            getattr(lib, name).restype = i
         _lib = lib
         return lib

@@ -1,4 +1,4 @@
-// Per-thread bodies of the two scan kernels (kernels.cu launches them).
+// Per-thread bodies of the scan kernels (kernels.cu launches them).
 // Kept apart from the launch code so the arithmetic can also be driven
 // from a host compiler.
 //
@@ -6,6 +6,7 @@
 #pragma once
 
 #include "field.cuh"
+#include "dfa.cuh"
 #include "ripemd160.cuh"
 #include "sha256.cuh"
 
@@ -73,6 +74,40 @@ VG_FN bool in_intervals(const uint32_t w[5], const uint32_t* lo,
   return hit;
 }
 
+// The affine add of window k's base point and table point b of lane
+// e = k*B + b, from the lane's precomputed inverse of dx = tx - bx:
+// lambda = (ty - by) / dx, x = lambda^2 - bx - tx and, when kWithY,
+// y = lambda (bx - x) - by.  Every value is canonical (< p), so y's parity
+// is the compressed-key prefix's.  Returns false where dx == 0 (the
+// doubling lane), leaving x and y unset.
+template <bool kWithY>
+VG_FN bool lane_add(uint32_t x[8], uint32_t y[8], const uint32_t* bx,
+                    const uint32_t* by, const uint32_t* tx, const uint32_t* ty,
+                    const uint32_t* inv, long B, long N, long e) {
+  const long k = e / B, b = e - k * B;
+  uint32_t base[8], t[8], lam[8], u[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) base[i] = bx[k * 8 + i];
+  fe_load(t, tx, B, b);
+  fe_sub(lam, t, base);
+  if (fe_is_zero(lam)) return false;
+  fe_load(lam, ty, B, b);
+#pragma unroll
+  for (int i = 0; i < 8; i++) u[i] = by[k * 8 + i];
+  fe_sub(lam, lam, u);
+  fe_load(x, inv, N, e);
+  fe_mul(lam, lam, x);
+  fe_sqr(x, lam);
+  fe_sub(x, x, base);
+  fe_sub(x, x, t);
+  if constexpr (kWithY) {
+    fe_sub(t, base, x);
+    fe_mul(t, lam, t);
+    fe_sub(y, t, u);
+  }
+  return true;
+}
+
 // Kernel B, lane e = k*B + b: x-only affine add of window base k and table
 // point b, then bit 2v+pi of the result is set when
 // hash160((2+pi) || beta^v * x) lies in an interval.  0 where dx == 0 or
@@ -85,22 +120,8 @@ VG_FN int32_t range_glv_lane(const uint32_t* bx, const uint32_t* by,
                              long e) {
   const long k = e / B, b = e - k * B;
   if (b >= (long)remaining[k]) return 0;
-  uint32_t base[8], t[8], u[8], x[8];
-#pragma unroll
-  for (int i = 0; i < 8; i++) base[i] = bx[k * 8 + i];
-  fe_load(t, tx, B, b);
-  fe_sub(u, t, base);
-  if (fe_is_zero(u)) return 0;
-  // lambda = (ty - by) / (tx - bx); x = lambda^2 - bx - tx
-  fe_load(x, ty, B, b);
-#pragma unroll
-  for (int i = 0; i < 8; i++) u[i] = by[k * 8 + i];
-  fe_sub(x, x, u);
-  fe_load(u, inv, N, e);
-  fe_mul(x, x, u);
-  fe_sqr(x, x);
-  fe_sub(x, x, base);
-  fe_sub(x, x, t);
+  uint32_t x[8], u[8];
+  if (!lane_add<false>(x, u, bx, by, tx, ty, inv, B, N, e)) return 0;
   // the variants' x-coordinates: x, beta x, beta^2 x = beta (beta x)
 #pragma unroll
   for (int i = 0; i < 8; i++) u[i] = BETA[i];
@@ -114,6 +135,71 @@ VG_FN int32_t range_glv_lane(const uint32_t* bx, const uint32_t* by,
       sha256_x33(st, x, 2u + pi);
       ripemd160_sha_state(h, st);
       if (in_intervals(h, lo, hi, n_slots)) mask |= 1 << (2 * v + pi);
+    }
+  }
+  return mask;
+}
+
+// Kernel C, lane e = k*B + b: the full affine add, then 1 when
+// hash160((2 + (y & 1)) || x) lies in an interval.  0 where dx == 0 or
+// b >= remaining[k].
+VG_FN int32_t range_lane(const uint32_t* bx, const uint32_t* by,
+                         const uint32_t* tx, const uint32_t* ty,
+                         const uint32_t* inv, const uint32_t* lo,
+                         const uint32_t* hi, int n_slots,
+                         const int32_t* remaining, long B, long N, long e) {
+  const long k = e / B, b = e - k * B;
+  if (b >= (long)remaining[k]) return 0;
+  uint32_t x[8], y[8], st[8], h[5];
+  if (!lane_add<true>(x, y, bx, by, tx, ty, inv, B, N, e)) return 0;
+  sha256_x33(st, x, 2u + (y[0] & 1u));
+  ripemd160_sha_state(h, st);
+  return in_intervals(h, lo, hi, n_slots) ? 1 : 0;
+}
+
+// Kernel D, lane e: the full affine add, hash160 of the compressed key, its
+// address symbols in format kFmt, the DFA walk -> 0/1.  0 where dx == 0 or
+// b >= remaining[k].
+template <int kFmt>
+VG_FN int32_t dfa_lane(const uint32_t* bx, const uint32_t* by,
+                       const uint32_t* tx, const uint32_t* ty,
+                       const uint32_t* inv, const Dfa& dfa,
+                       const int32_t* remaining, long B, long N, long e) {
+  const long k = e / B, b = e - k * B;
+  if (b >= (long)remaining[k]) return 0;
+  uint32_t x[8], y[8], st[8], h[5];
+  if (!lane_add<true>(x, y, bx, by, tx, ty, inv, B, N, e)) return 0;
+  sha256_x33(st, x, 2u + (y[0] & 1u));
+  ripemd160_sha_state(h, st);
+  return h160_matches<kFmt>(dfa, h) ? 1 : 0;
+}
+
+// Kernel E, lane e: the x-only affine add, then for v in 0..2 and pi in
+// 0..1 the address of hash160((2+pi) || beta^v x) in format kFmt through
+// the DFA; bit 2v+pi is set on accept (the bit layout of kernel B and of
+// vgen_tpu.crypto.secp256k1.glv_bit_variant_keys(parity_exact=False)).
+// 0 where dx == 0 or b >= remaining[k].
+template <int kFmt>
+VG_FN int32_t glv_dfa_lane(const uint32_t* bx, const uint32_t* by,
+                           const uint32_t* tx, const uint32_t* ty,
+                           const uint32_t* inv, const Dfa& dfa,
+                           const int32_t* remaining, long B, long N, long e) {
+  const long k = e / B, b = e - k * B;
+  if (b >= (long)remaining[k]) return 0;
+  uint32_t x[8], u[8];
+  if (!lane_add<false>(x, u, bx, by, tx, ty, inv, B, N, e)) return 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) u[i] = BETA[i];
+  int32_t mask = 0;
+#pragma unroll 1
+  for (int v = 0; v < 3; v++) {
+    if (v > 0) fe_mul(x, x, u);
+#pragma unroll 1
+    for (int pi = 0; pi < 2; pi++) {
+      uint32_t st[8], h[5];
+      sha256_x33(st, x, 2u + pi);
+      ripemd160_sha_state(h, st);
+      if (h160_matches<kFmt>(dfa, h)) mask |= 1 << (2 * v + pi);
     }
   }
   return mask;

@@ -60,6 +60,17 @@ VG_FN void sha256_compress(uint32_t st[8], uint32_t w[16]) {
   st[7] += h;
 }
 
+VG_FN void sha256_init(uint32_t st[8]) {
+  st[0] = 0x6A09E667u;
+  st[1] = 0xBB67AE85u;
+  st[2] = 0x3C6EF372u;
+  st[3] = 0xA54FF53Au;
+  st[4] = 0x510E527Fu;
+  st[5] = 0x9B05688Cu;
+  st[6] = 0x1F83D9ABu;
+  st[7] = 0x5BE0CD19u;
+}
+
 // st = SHA-256(parity || x big-endian) as 8 big-endian state words.
 // x[7] is the most significant limb: word 0 is the parity byte and x's top
 // three bytes, words 1..7 straddle two limbs by 8 bits, word 8 is x's last
@@ -73,14 +84,7 @@ VG_FN void sha256_x33(uint32_t st[8], const uint32_t x[8], uint32_t parity) {
 #pragma unroll
   for (int i = 9; i < 15; i++) w[i] = 0u;
   w[15] = 264u;
-  st[0] = 0x6A09E667u;
-  st[1] = 0xBB67AE85u;
-  st[2] = 0x3C6EF372u;
-  st[3] = 0xA54FF53Au;
-  st[4] = 0x510E527Fu;
-  st[5] = 0x9B05688Cu;
-  st[6] = 0x1F83D9ABu;
-  st[7] = 0x5BE0CD19u;
+  sha256_init(st);
   sha256_compress(st, w);
 }
 

@@ -2,8 +2,9 @@
 
 The scan adds one base point B = k*G to every table point T[i] = i*G and
 shares one batch inversion of dx = tx - bx across the batch
-(``fused.batch_inverse_dx``).  Kernel B does the x-only finish of
-``ec_finish_x`` on the card (``csrc/scan_lanes.cuh``).
+(``fused.batch_inverse_dx``).  On the card ``csrc/scan_lanes.cuh``
+``lane_add`` does both finishes: x only (kernels B and E) and x and y
+(kernels C and D).
 """
 
 from __future__ import annotations
@@ -29,3 +30,12 @@ def ec_finish_x(bx, by, tx, ty, inv_dx):
     lam = field.mul(field.sub(ty, by), inv_dx)
     x3 = field.sub(field.sub(field.square(lam), bx), tx)
     return x3, valid
+
+
+def ec_finish(bx, by, tx, ty, inv_dx):
+    """(x3, y3, valid) of B + T with both coordinates canonical (< p), so
+    y3's parity is the compressed key's prefix (the counterpart of
+    ``vgen_tpu/ops/pallas_fused.py`` ``_ec_finish``).  valid: dx != 0."""
+    valid = ~u256.is_zero(field.sub(tx, bx))
+    x3, y3 = affine_add_batch(bx, by, tx, ty, inv_dx)
+    return x3, y3, valid

@@ -1,5 +1,6 @@
-"""Interval matching, the GLV variant mask and top-k (plain PyTorch), plus
-the host helpers the scan needs from ``vgen_tpu/ops/pipeline.py``.
+"""Interval matching, address symbols and the DFA walk, the GLV variant
+masks and top-k (plain PyTorch), plus the host helpers the scan needs from
+``vgen_tpu/ops/pipeline.py``.
 
 That module imports jax at its top level, so the few numpy helpers the
 slice uses are re-expressed here; ``tests/test_torch_scanner.py`` holds
@@ -20,6 +21,13 @@ from vgen_tpu_torch.ops import encode, field, u256
 TOP_K = 16  # index slots per window in a packed row
 PACKED_WIDTH = 2 + 2 * TOP_K  # [count, ops, idx x16, vbits x16]
 MAX_INTERVALS = 8  # comparator slots
+
+# DFA width (digits + EOS + PAD) of the formats the DFA kernels serve
+# (``FORMAT_DFA_WIDTH``)
+FORMAT_DFA_WIDTH = {
+    AddressFormat.P2PKH: 60,
+    AddressFormat.P2WPKH: 34,
+}
 
 GLV_FORMATS = (
     AddressFormat.P2PKH,
@@ -68,21 +76,26 @@ def in_intervals(words: List[torch.Tensor], lo: torch.Tensor,
     return matched
 
 
-def glv_interval_mask(x3: torch.Tensor, lo: torch.Tensor,
-                      hi: torch.Tensor) -> torch.Tensor:
-    """6-bit GLV variant mask for the compressed-hash160 formats: bit 2v+pi
-    is set when hash160((2+pi) || beta^v * x) lies in an interval.  The
-    x-coordinates {x, beta x, beta^2 x} carry the six keys {±k, ±λk, ±λ²k};
-    the ± pair is the two prefix parities, so y is never needed."""
+def _glv_mask(x3: torch.Tensor, hit) -> torch.Tensor:
+    """6-bit GLV variant mask: bit 2v+pi is set when ``hit`` holds for
+    hash160((2+pi) || beta^v * x).  The x-coordinates {x, beta x, beta^2 x}
+    carry the six keys {±k, ±λk, ±λ²k}; the ± pair is the two prefix
+    parities, so y is never needed."""
     xs = (x3, field.mul(x3, u256.constant(ec.BETA, x3)),
           field.mul(x3, u256.constant(ec.BETA2, x3)))
     mask = torch.zeros(x3.shape[1:], dtype=torch.int64, device=x3.device)
     for v, xv in enumerate(xs):
         for pi in range(2):
-            m = in_intervals(encode.hash160_33_words_from_x(xv, 2 + pi),
-                             lo, hi)
+            m = hit(encode.hash160_33_words_from_x(xv, 2 + pi))
             mask = mask | (m.to(torch.int64) << (2 * v + pi))
     return mask
+
+
+def glv_interval_mask(x3: torch.Tensor, lo: torch.Tensor,
+                      hi: torch.Tensor) -> torch.Tensor:
+    """GLV variant mask of the compressed-hash160 formats: the hash160 lies
+    in an interval."""
+    return _glv_mask(x3, lambda h160w: in_intervals(h160w, lo, hi))
 
 
 def top_k_match_indices(scores: torch.Tensor) -> torch.Tensor:
@@ -90,3 +103,53 @@ def top_k_match_indices(scores: torch.Tensor) -> torch.Tensor:
     (scores are the index for a match and -1 otherwise, so the result is
     the highest matching indices padded with -1)."""
     return torch.topk(scores, TOP_K, dim=-1, sorted=True).values
+
+
+def hash160_words(x3: torch.Tensor, y3: torch.Tensor) -> List[torch.Tensor]:
+    """The interval value of P2PKH and P2WPKH: hash160 of the compressed
+    key, prefix 2 + (y & 1), as 5 big-endian words
+    (``interval_value_words``).  y3 must be canonical."""
+    return encode.hash160_33_words_from_x(x3, 2 + (y3[0] & 1))
+
+
+def address_symbols(fmt: AddressFormat, h160w: List[torch.Tensor]):
+    """(syms (T, *S), length (*S,)) of the address of a hash160:
+    Base58Check for P2PKH, bech32 after "bc1" for P2WPKH."""
+    if fmt == AddressFormat.P2PKH:
+        return encode.base58check_symbols(0, h160w)
+    if fmt == AddressFormat.P2WPKH:
+        return encode.bech32_p2wpkh_symbols(h160w)
+    raise ValueError(f"no address symbols for {fmt.value}")
+
+
+def dfa_walk(table: torch.Tensor, accept: torch.Tensor, start: int,
+             syms: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """``match_symbols_gather``: T + 1 steps over table (S, W); step j
+    feeds syms[j] while j < length, EOS (W - 2) at j == length and PAD
+    (W - 1) after it -> accept[state] as bool.  Any state count."""
+    W = table.shape[1]
+    flat = table.reshape(-1).to(torch.int64)
+    T = syms.shape[0]
+    state = torch.full(length.shape, int(start), dtype=torch.int64,
+                       device=syms.device)
+    for j in range(T + 1):
+        sym = torch.where(j < length, syms[min(j, T - 1)],
+                          torch.where(j == length, W - 2, W - 1))
+        state = flat[state * W + sym]
+    return accept.to(torch.int64)[state] != 0
+
+
+def dfa_matches(fmt: AddressFormat, h160w: List[torch.Tensor],
+                table: torch.Tensor, accept: torch.Tensor,
+                start: int) -> torch.Tensor:
+    """Whether the address of each hash160 is accepted by the DFA."""
+    syms, length = address_symbols(fmt, h160w)
+    return dfa_walk(table, accept, start, syms, length)
+
+
+def glv_dfa_mask(fmt: AddressFormat, x3: torch.Tensor, table: torch.Tensor,
+                 accept: torch.Tensor, start: int) -> torch.Tensor:
+    """GLV variant mask for the DFA: the address of the hash160 is accepted
+    (the bit layout of ``glv_interval_mask`` and ``glv_variant_symbols``)."""
+    return _glv_mask(
+        x3, lambda h160w: dfa_matches(fmt, h160w, table, accept, start))

@@ -1,14 +1,20 @@
-"""Device scan loop for the random interval + GLV path.
+"""Device scan loop: random and range scans, interval and DFA routes.
 
-The counterpart of ``vgen_tpu/scan/scanner.py`` ``DeviceScanner`` for
-anchored-prefix patterns (and selective prefixes) in the hash160 formats.
-The host draws one random start per scan, computes one base point per
-window, keeps a few super-steps in flight (each packed result is copied
-into pinned host memory behind a CUDA event), and re-derives every
-reported key with the native code before it counts as a match.
+The counterpart of ``vgen_tpu/scan/scanner.py`` ``DeviceScanner`` for the
+hash160 formats (P2PKH, P2WPKH).  A pattern that compiles to hash160
+intervals (an anchored literal, or a selective literal prefix whose
+survivors the host checks against the full regex) takes the interval step;
+any other regex takes the DFA step.  Random scans check six GLV keys per
+table position; range scans (``config.start`` set) check each key of
+[start, end] once, report matches in key order, and keep a checkpoint when
+``config.checkpoint`` is set.
 
-Other paths raise ``NotImplementedError`` naming their ROADMAP item; none
-falls back to another path.
+The host computes one base point per window, keeps a few super-steps in
+flight (each packed result is copied into pinned host memory behind a CUDA
+event), and re-derives every reported key with the native code before it
+counts as a match.  A device failure raises: nothing falls back to the CPU
+scanner, and other formats raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from vgen_tpu.scan.scanner import (
     ScanConfig,
     ScanResult,
     StopFlag,
+    _derive_checked,
     _derive_checked_bulk,
     _scan_cpu,
 )
@@ -37,7 +44,7 @@ from vgen_tpu_torch.scan import tables
 
 DEFAULT_DEVICE_BATCH = 524_288
 DEFAULT_K_SUB = 8
-GLV_KEYS = 6  # keys checked per table position: {±k, ±λk, ±λ²k}
+GLV_KEYS = fused.GLV_KEYS
 
 
 class DeviceScanner:
@@ -59,10 +66,12 @@ class DeviceScanner:
             raise RuntimeError("DeviceScanner: no CUDA device is visible")
         self.tx, self.ty = tables.ig_table(batch_size, self.device)
 
-    def _plan_intervals(self, pattern: Pattern):
+    def _plan_intervals(self, pattern: Pattern, config: ScanConfig):
         """Exact intervals for an anchored literal; else the longest-prefix
-        over-approximation when selective enough (the drain applies the
-        full regex to survivors); else None."""
+        over-approximation when its expected survivors per window (six keys
+        per position on random GLV scans, one on range scans) stay within
+        PREFILTER_MAX_SURVIVORS (the drain applies the full regex to
+        survivors); else None, the DFA route."""
         ivs = pattern.match_intervals(self.fmt)
         if ivs is not None:
             return ivs
@@ -70,7 +79,9 @@ class DeviceScanner:
         if pf is None:
             return None
         pf_ivs, p = pf
-        if p * self.batch * GLV_KEYS <= self.PREFILTER_MAX_SURVIVORS:
+        glv_mult = (GLV_KEYS if config.start is None
+                    and self.fmt in pipeline.GLV_FORMATS else 1)
+        if p * self.batch * glv_mult <= self.PREFILTER_MAX_SURVIVORS:
             return pf_ivs
         return None
 
@@ -82,48 +93,113 @@ class DeviceScanner:
         return (u256.as_i32(bx).to(self.device, non_blocking=True),
                 u256.as_i32(by).to(self.device, non_blocking=True))
 
+    def _remaining(self, values: List[int]) -> torch.Tensor:
+        return torch.tensor(values, dtype=torch.int32).to(
+            self.device, non_blocking=True)
+
+    def _route(self, pattern: Pattern, config: ScanConfig, glv: bool):
+        """(packed step, mask step, exact) for the pattern's route, each
+        step taking (bx, by, remaining).  exact: a device hit is a match
+        of the full pattern (False for prefilter intervals)."""
+        dev = self.device
+        ivs = self._plan_intervals(pattern, config)
+        if ivs is not None:
+            n_slots = pipeline.interval_slot_count(len(ivs))
+            lo_np, hi_np = pipeline.intervals_to_words(ivs, n_slots=n_slots)
+            lo, hi = u256.as_i32(lo_np).to(dev), u256.as_i32(hi_np).to(dev)
+
+            def step(bx, by, rem):
+                return fused.fused_range_scan_step(
+                    self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv)
+
+            def mask_step(bx, by, rem):
+                return fused.fused_range_mask_step(
+                    self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv)
+
+            return step, mask_step, pattern.match_intervals(self.fmt) is not None
+        dfa = pattern.device_dfa(self.fmt)
+        table = torch.from_numpy(dfa.table.astype(np.int32)).to(dev)
+        accept = torch.from_numpy(dfa.accept.astype(np.int32)).to(dev)
+        start = int(dfa.start)
+
+        def step(bx, by, rem):
+            return fused.fused_scan_step(self.fmt, bx, by, self.tx, self.ty,
+                                         table, accept, start, rem, glv)
+
+        def mask_step(bx, by, rem):
+            return fused.fused_scan_mask_step(
+                self.fmt, bx, by, self.tx, self.ty, table, accept, start, rem,
+                glv)
+
+        return step, mask_step, True
+
     def scan(self, pattern: Pattern, config: ScanConfig,
              progress_callback: Optional[ProgressCallback] = None,
              stop_flag: Optional[StopFlag] = None,
              recover_overflow: bool = True) -> ScanResult:
-        if config.start is not None or config.end is not None:
-            raise NotImplementedError(
-                "range scans (--range, --puzzle): ROADMAP queue 1 item 11"
-            )
         if config.format != self.fmt:
             raise ValueError(f"scanner built for {self.fmt.value}, config "
                              f"asks for {config.format.value}")
-        ivs = self._plan_intervals(pattern)
-        if ivs is None:
-            raise NotImplementedError(
-                f"pattern {pattern.original!r} needs the DFA path: "
-                "ROADMAP queue 1 item 12"
-            )
-        n_slots = pipeline.interval_slot_count(len(ivs))
-        lo_np, hi_np = pipeline.intervals_to_words(ivs, n_slots=n_slots)
-        lo = u256.as_i32(lo_np).to(self.device)
-        hi = u256.as_i32(hi_np).to(self.device)
+        is_range = config.start is not None
+        # GLV variants only on random scans: a range scan reports keys
+        # inside [start, end]
+        glv = not is_range and self.fmt in pipeline.GLV_FORMATS
+        mult = GLV_KEYS if glv else 1
+        step, mask_step, exact = self._route(pattern, config, glv)
         B, K = self.batch, self.k_sub
         on_cuda = self.device.type == "cuda"
-        remaining = torch.full((K,), B, dtype=torch.int32, device=self.device)
 
-        # one random start per scan, then consecutive windows
-        next_key = 2 + secrets.randbelow(ec.N - 3)
-        t0 = time.time()
         gen = AddressGenerator(self.fmt)
         matches: List[GeneratedAddress] = []
         total_ops = 0
+        ckpt = config.checkpoint if is_range else None
+        if is_range:
+            next_key = max(config.start, 1)
+            end_key = min(config.end if config.end is not None else ec.N - 1,
+                          ec.N - 1)
+            if ckpt is not None:
+                state = ckpt.load()
+                if state is not None:
+                    next_key = max(next_key, state["next_key"])
+                    total_ops = state["operations"]
+                    for key in state["match_keys"]:
+                        ga = _derive_checked(key, self.fmt, gen)
+                        if ga is not None:
+                            matches.append(ga)
+            full_remaining = None
+        else:
+            # one random start per scan, then consecutive windows
+            next_key = 2 + secrets.randbelow(ec.N - 3)
+            end_key = None
+            full_remaining = self._remaining([B] * K)
+
+        t0 = time.time()
         inflight = deque()
         stop = stop_flag or StopFlag()
         target = config.count if config.count > 0 else float("inf")
 
-        def submit():
+        # a window covers keys base+1 .. base+B with base = next_key - 1, so
+        # key 1 (base 0, the point at infinity) is checked on the host
+        if is_range and next_key == 1:
+            ga = gen.generate((1).to_bytes(32, "big"))
+            total_ops += 1
+            if ga is not None and pattern.matches(ga.address):
+                matches.append(ga)
+            next_key = 2
+
+        def submit() -> bool:
             nonlocal next_key
+            if is_range and next_key > end_key:
+                return False
             # window k covers keys base+1 .. base+B, base = next_key-1+k*B
             base_scalars = [next_key - 1 + k * B for k in range(K)]
+            if is_range:
+                rems = [max(0, min(B, end_key - base)) for base in base_scalars]
+                remaining = self._remaining(rems)
+            else:
+                rems, remaining = [B] * K, full_remaining
             bx, by = self._base_points(base_scalars)
-            packed = fused.fused_range_scan_step(
-                self.fmt, bx, by, self.tx, self.ty, lo, hi, remaining)
+            packed = step(bx, by, remaining)
             if on_cuda:
                 host = torch.empty(packed.shape, dtype=packed.dtype,
                                    pin_memory=True)
@@ -132,33 +208,33 @@ class DeviceScanner:
                 done.record()
             else:
                 host, done = packed, None
-            inflight.append((base_scalars, host, done))
+            inflight.append((base_scalars, rems, host, done))
             nk = next_key + B * K
-            if nk + B * (K + 1) >= ec.N:
+            if not is_range and nk + B * (K + 1) >= ec.N:
                 # wrap: restart uniformly over the key space, leaving
                 # headroom for the next super-step
                 nk = 2 + secrets.randbelow(ec.N - 2 - B * (K + 1))
             next_key = nk
+            return True
 
-        def full_window_indices(base_scalar: int):
-            """{index: variant mask} of every match in one window: the
-            packed row holds only TOP_K indices."""
+        def full_window_indices(base_scalar: int, rem: int):
+            """{index: mask} of every match in one window: the packed row
+            holds only TOP_K indices."""
             bx, by = self._base_points([base_scalar])
-            mask = fused.fused_range_mask_step(
-                self.fmt, bx, by, self.tx, self.ty, lo, hi, remaining[:1])
+            mask = mask_step(bx, by, self._remaining([rem]))
             mask = mask[0].cpu().numpy()
             return {int(i): int(mask[i]) for i in np.nonzero(mask)[0]}
 
         def drain_one():
             nonlocal total_ops
-            base_scalars, host, done = inflight.popleft()
+            base_scalars, rems, host, done = inflight.popleft()
             if done is not None:
                 done.synchronize()
             arr = host.numpy()
             top_k = pipeline.TOP_K
             cand_keys: List[int] = []
             # device-confirmed indices so far in this super-step: each
-            # derives to at least one real match
+            # derives to at least one real match when the route is exact
             guaranteed = 0
             for k, base_scalar in enumerate(base_scalars):
                 count = int(arr[k, 0])
@@ -169,42 +245,60 @@ class DeviceScanner:
                                     arr[k, 2 + top_k:2 + 2 * top_k])
                     if i >= 0
                 }
-                # recover the truncated slots only when the reported ones
-                # cannot reach a finite requested count (an endless scan
-                # moves on to fresh windows instead)
-                if (count > len(pairs) and recover_overflow
-                        and target != float("inf")
-                        and len(matches) + len(cand_keys)
-                        + len(pairs) * GLV_KEYS < target):
-                    pairs = full_window_indices(base_scalar)
-                # the device masks the doubling lane (key0 == 2*base, where
-                # the table point equals the base point); check it here
-                if 1 <= base_scalar <= B:
+                # the packed row holds TOP_K indices.  A range scan must
+                # report every key, so it always fetches the full window;
+                # a random scan only when the reported ones cannot reach a
+                # finite requested count (otherwise fresh windows are
+                # cheaper)
+                if count > len(pairs) and recover_overflow and (
+                        is_range or (
+                            target != float("inf")
+                            and len(matches) + len(cand_keys)
+                            + len(pairs) * mult < target)):
+                    pairs = full_window_indices(base_scalar, rems[k])
+                # the device masks the doubling lane (key 2*base, where the
+                # table point equals the base point; its ops are already in
+                # the row's count): check that key here
+                if 1 <= base_scalar <= B and (
+                        not is_range or 2 * base_scalar <= end_key):
                     pairs.setdefault(base_scalar - 1, 0)  # 0: all variants
-                    total_ops += GLV_KEYS
+                # collect in key order while the confirmed ones cannot yet
+                # reach the target (range scans report the lowest keys)
                 if pairs and len(matches) + guaranteed < target:
                     for idx in sorted(pairs):
-                        cand_keys.extend(ec.glv_bit_variant_keys(
-                            base_scalar + 1 + idx, pairs[idx],
-                            parity_exact=False))
-                    guaranteed += sum(1 for b in pairs.values() if b)
+                        key0 = base_scalar + 1 + idx
+                        cand_keys.extend(
+                            ec.glv_bit_variant_keys(key0, pairs[idx],
+                                                    parity_exact=False)
+                            if glv else [key0])
+                    if exact:
+                        guaranteed += sum(1 for b in pairs.values() if b)
             for key, ga in _derive_checked_bulk(cand_keys, self.fmt, gen):
                 if len(matches) >= target:
                     break
                 if ga is not None and pattern.matches(ga.address):
                     matches.append(ga)
+            if ckpt is not None:
+                # keys up to the end of this super-step's last window are done
+                ckpt.advance(min(base_scalars[-1] + B + 1, end_key + 1),
+                             total_ops, [int(m.hex, 16) for m in matches])
             if progress_callback:
                 progress_callback(total_ops)
 
         while not stop.is_set() and len(matches) < target:
             while len(inflight) < max(1, config.in_flight):
-                submit()
+                if not submit():
+                    break
+            if not inflight:
+                break  # range exhausted
             drain_one()
         # drain what is in flight: its matches still count
         while inflight and len(matches) < target:
             drain_one()
         if on_cuda:
             torch.cuda.synchronize(self.device)
+        if ckpt is not None:
+            ckpt.finalize()
         return ScanResult(
             matches=matches[:config.count if config.count > 0 else None],
             operations=total_ops,
@@ -230,13 +324,15 @@ def benchmark_device(fmt: AddressFormat = AddressFormat.P2PKH,
                      pattern_str: str = "^1BenchNeverMatches",
                      batch_size: int = DEFAULT_DEVICE_BATCH,
                      min_seconds: float = 5.0, warmup_batches: int = 2,
-                     k_sub: int = DEFAULT_K_SUB, device="cuda") -> dict:
-    """Timed scan (table build and warm-up excluded) -> keys/s.
+                     k_sub: int = DEFAULT_K_SUB, device="cuda",
+                     ignore_case: bool = False) -> dict:
+    """Timed random scan (table build and warm-up excluded) -> keys/s, on
+    whatever route the pattern takes (interval or DFA).
 
     recover_overflow=False: count=10**9 is a never-stop sentinel, and
     recovering every overflowing window of an easy pattern would time the
     host, not the device."""
-    pat = Pattern(pattern_str)
+    pat = Pattern(pattern_str, ignore_case)
     cfg = ScanConfig(format=fmt, count=10**9, device_batch_size=batch_size)
     scanner = DeviceScanner(fmt, batch_size, device, k_sub)
 
