@@ -15,7 +15,7 @@ Phases (each prints what it found; any failure raises and exits non-zero):
    masks and packed rows bit-equal;
 5. the main path at full width through the CLI: ``generate -p ^1C -c 3``
    (P2PKH, B = 524288, k_sub = 8); every match re-derived by the
-   vgen_tpu.crypto oracle; both kernels' launch counters > 0 in that run;
+   vgen_tpu_torch.crypto oracle; both kernels' launch counters > 0 in that run;
 6. kernels A and B and their plain versions timed at the main path's shape
    (K = 8, B = 524288) with CUDA events, outputs compared again;
 7. a timed benchmark_device run (^1BenchNeverMatches, about 10 s);
@@ -40,12 +40,38 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     B = 524288 on patterns that hit often (^1C, [Cc]at, Cat$), outputs
     compared again, matching lanes > 0 for each;
 15. a timed benchmark_device run on a DFA pattern that never matches
-    (BenchNeverMatches$, P2PKH, GLV, about 5 s) through kernel E.
+    (BenchNeverMatches$, P2PKH, GLV, about 5 s) through kernel E;
+16. the P2TR kernels F (p2tr_ladder, finish=True, and its finish=False
+    form on affine points), G (batch_inverse_chain, with a forced zero-Z
+    lane), H (p2tr_finish_range, ^bc1pq) and I (p2tr_finish_match, q$)
+    against their plain versions on CPU: real tables and base points,
+    K = 2, B = 8192, one window based below B; bit-equal, matching lanes
+    > 0;
+17. ``generate -f p2tr -p ^bc1pqq -c 3`` at full width: oracle-confirmed;
+    kernels A, F, G and H launched, I not;
+18. ``generate -f p2tr -p qq$ -c 3``: kernels A, F, G and I, H not;
+19. a full-width P2TR DFA range of two windows (1048576 keys, qq$, -c 0):
+    the match set equals the native CPU scanner's, key for key;
+20. kernels F, G, H and I and their plain versions timed at K = 8,
+    B = 524288 with CUDA events, outputs compared again (the plain ladder
+    at K = 1 when K = 8 would take over 60 s, judged from one window),
+    and F's finish=False form at N = 524288;
+21. timed benchmark_device runs (about 5 s each) on P2TR patterns that
+    never match: an interval pattern through kernels A, F, G and H, and a
+    suffix through A, F, G and I.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Tolerance everywhere: exact (the values are integers).  The line
 before the last is the kernels' JSON summary, the last line the device
 JSON.
+
+Each kernel's ``bound_ms`` is the larger of the time its 32-bit integer
+instructions need (the model below, over the SMs at the maximum SM clock
+nvidia-smi reports) and its bytes (each input read once, each output
+written once) over 3.35 TB/s.  Instructions are counted per lane from the
+algorithm (a model, not a measurement); the ladder's adds are counted from
+this run's tweak digits.  A kernel timed below its bound fails the run: the
+model would then count more than the work needs.
 """
 
 import contextlib
@@ -57,6 +83,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -70,12 +98,13 @@ def require(cond, msg):
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Mean milliseconds per call of fn() over reps calls, by CUDA events
-    (one warm-up call first)."""
+    (one warm-up call first unless warm is False)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -86,6 +115,56 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# The model behind bound_ms: 32-bit integer instructions per lane, as
+# (multiplies, all instructions), the fewest the algorithm needs, with one
+# instruction per 32x32->64 multiply-add.  An SM issues one warp
+# instruction per scheduler per clock (4 x 32 = 128 lane results) and runs
+# integer multiply-adds at 64 per clock, so a kernel needs at least
+# max(multiplies / 64, instructions / 128) clocks on every SM.
+# - field multiply: 64 partial products (a multiply-add and a carry add
+#   each), the fold of the high half by 977 (8 more), the fold's one-limb
+#   shift (8 adds) and a 16-op conditional subtract of p;
+# - field squaring: 36 distinct partial products, the 28 cross products
+#   doubled by a 16-op shift, then the same fold and subtract;
+# - modular add or subtract: 8 carrying adds and 8 for the fix-up;
+# - SHA-256 compression: 64 rounds of 14 (per sigma three funnel-shift
+#   rotates and one three-input XOR, one LOP3 each for Ch and Maj, four
+#   three-input adds) and 48 schedule words of 10, less 60 where the
+#   initial state and the zero padding words are constants;
+# - RIPEMD-160: 160 steps of 6 (a LOP3, two rotates, three adds), one add
+#   fewer in the 80 steps on constant padding words, 10 for the final
+#   combination and 8 byte swaps;
+# - inversion: 255 squarings and 15 multiplies;
+# - a DFA step: the index's multiply-add and the load;
+# - an interval compare of W words against S slots: a subtract with borrow
+#   per word against lo and against hi, and one combine, per slot.
+FE_MUL = np.array([64 + 8, 2 * 64 + 2 * 8 + 8 + 16])
+FE_SQR = np.array([36 + 8, 2 * 36 + 16 + 2 * 8 + 8 + 16])
+FE_ADD = np.array([0, 16])
+SHA256 = np.array([0, 64 * 14 + 48 * 10 - 60])
+RIPEMD160 = np.array([0, 160 * 6 - 80 + 10 + 8])
+HASH160 = SHA256 + RIPEMD160
+INV = 255 * FE_SQR + 15 * FE_MUL
+DFA_STEP = np.array([1, 2])
+MULS_PER_SM_CLOCK, INSTRUCTIONS_PER_SM_CLOCK = 64, 128
+HBM_BYTES_PER_S = 3.35e12
+
+
+def compare(slots, words):
+    return np.array([0, slots * (2 * words + 1)])
+
+
+def bound(ops, nbytes, sm_clocks_per_s):
+    """(bound_ms, bound_by): the larger of the instructions' time on the
+    SMs (``sm_clocks_per_s``: SMs x clock) and bytes over the memory
+    rate."""
+    t_ops = max(ops[0] / MULS_PER_SM_CLOCK,
+                ops[1] / INSTRUCTIONS_PER_SM_CLOCK) / sm_clocks_per_s
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return float(max(t_ops, t_mem) * 1e3), ("operations" if t_ops >= t_mem
+                                            else "bytes")
+
+
 def max_abs_err(a, b):
     import torch
 
@@ -93,7 +172,6 @@ def max_abs_err(a, b):
 
 
 def main():
-    import numpy as np
     import torch
 
     # -- 1. the card ----------------------------------------------------
@@ -104,34 +182,48 @@ def main():
     require(os.path.dirname(os.path.abspath(vgen_tpu_torch.__file__))
             == os.path.join(HERE, "vgen_tpu_torch"),
             "vgen_tpu_torch is not in this checkout")
-    from vgen_tpu import native
-    from vgen_tpu.cli import resolve_range_params
-    from vgen_tpu.crypto import secp256k1 as ec
-    from vgen_tpu.crypto.address import AddressFormat, AddressGenerator
-    from vgen_tpu.pattern import Pattern
-    from vgen_tpu.scan.checkpoint import CheckpointManager
-    from vgen_tpu.scan.scanner import ScanConfig, StopFlag, _scan_cpu
-    from vgen_tpu_torch import cli
+    from vgen_tpu_torch import cli, native
+    from vgen_tpu_torch.cli import resolve_range_params
+    from vgen_tpu_torch.crypto import secp256k1 as ec
+    from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator
+    from vgen_tpu_torch.pattern import Pattern
+    from vgen_tpu_torch.scan.checkpoint import CheckpointManager
+    from vgen_tpu_torch.scan.host import ScanConfig, StopFlag, _scan_cpu
     from vgen_tpu_torch.csrc import build
-    from vgen_tpu_torch.ops import fused, pipeline, u256
+    from vgen_tpu_torch.ops import curve, fused, pipeline, sha256, u256
     from vgen_tpu_torch.scan import scanner as sc
     from vgen_tpu_torch.scan import tables
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    def smi_query(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+
+    smi = smi_query("name,power.limit")
     name = torch.cuda.get_device_name(0)
     log(smi)
-    log(f"[1] card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
-        f" | python {sys.version.split()[0]} | devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    sm_mhz = float(smi_query("clocks.max.sm").split()[0])
+    sm_clocks_per_s = sm_count * sm_mhz * 1e6
+    log(f"[1] card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
+        f" | python {sys.version.split()[0]} | devices {torch.cuda.device_count()}"
+        f" | {sm_count} SMs, max SM clock {sm_mhz:.0f} MHz: "
+        f"{sm_clocks_per_s * INSTRUCTIONS_PER_SM_CLOCK / 1e12:.2f} T instructions/s, "
+        f"{sm_clocks_per_s * MULS_PER_SM_CLOCK / 1e12:.2f} T multiply-adds/s")
 
     wrappers = {"batch_inverse_dx": fused.batch_inverse_dx,
                 "range_glv_match": fused.range_glv_match,
                 "range_match": fused.range_match,
                 "dfa_match": fused.dfa_match,
-                "glv_dfa_match": fused.glv_dfa_match}
+                "glv_dfa_match": fused.glv_dfa_match,
+                "p2tr_ladder": fused.p2tr_ladder,
+                "batch_inverse_chain": fused.batch_inverse_chain,
+                "p2tr_finish_range": fused.p2tr_finish_range,
+                "p2tr_finish_match": fused.p2tr_finish_match}
+    sources = {k: "vgen_tpu_torch/csrc/kernels.cu" for k in list(wrappers)[:5]}
+    sources.update({k: "vgen_tpu_torch/csrc/p2tr.cu" for k in list(wrappers)[5:]})
 
     def reset_launches():
         for w in wrappers.values():
@@ -167,7 +259,8 @@ def main():
     def lo_hi(pat, fmt):
         ivs = pat.match_intervals(fmt) or pat.prefilter_intervals(fmt)[0]
         lo_np, hi_np = pipeline.intervals_to_words(
-            ivs, n_slots=pipeline.interval_slot_count(len(ivs)))
+            ivs, n_words=pipeline.INTERVAL_WORDS[fmt],
+            n_slots=pipeline.interval_slot_count(len(ivs)))
         return u256.as_i32(lo_np), u256.as_i32(hi_np)
 
     def dfa_tensors(pat, fmt):
@@ -178,29 +271,40 @@ def main():
     kernels = []
 
     def time_kernel(kname, run, plain, ref, replaces, launches, err_small,
-                    shape):
+                    shape, ops, nbytes, reps=10):
         """Hold the plain version against the kernel's output ``ref`` at the
-        timed shape, time both, and add the kernel's JSON entry."""
-        plain_out = plain()
-        err = max_abs_err(plain_out, ref)
+        timed shape, time both, and add the kernel's JSON entry (bound from
+        ``ops``, (multiplies, instructions), and ``nbytes`` bytes; the kernel
+        may not beat it).  The plain version's first call is its timed
+        one."""
+        ms = cuda_ms(run, reps)
+        plain_ms = cuda_ms(lambda: plain_out.append(plain()), 1, warm=False)
+        outs = (plain_out[0] if isinstance(plain_out[0], tuple)
+                else (plain_out[0],))
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        err = max(max_abs_err(p, r) for p, r in zip(outs, refs))
         require(err == 0, f"{kname} differs from its plain version at {shape}")
-        del plain_out
-        ms = cuda_ms(run, 10)
-        plain_ms = cuda_ms(plain, 1)
+        plain_out.clear()
         torch.cuda.empty_cache()
+        bound_ms, bound_by = bound(ops, nbytes, sm_clocks_per_s)
+        require(ms >= bound_ms, f"{kname}: {ms:.3f} ms beats its bound "
+                f"{bound_ms:.3f} ms: the model counts more than the work needs")
         kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "vgen_tpu_torch/csrc/kernels.cu", "replaces": replaces,
-            "launches": launches, "max_abs_err": max(err, err_small),
-            "ms": ms, "plain_ms": plain_ms,
+            "name": kname, "route": "cuda", "source": sources[kname],
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(err, err_small), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
         })
-        return ms, plain_ms
+        return ms, plain_ms, bound_ms, bound_by
+
+    plain_out = []
 
     # -- 2. build -------------------------------------------------------
     t0 = time.time()
     build.load()
     log(f"[2] kernels built+loaded in {time.time() - t0:.1f} s: "
-        f"{build.library_path().name}")
+        f"{', '.join(build.library_path(u).name for u in build.UNITS)}")
     for line in build.build_log().splitlines():
         if any(k in line for k in ("entry function", "registers", "spill")):
             log(f"    {line.strip()}")
@@ -284,20 +388,32 @@ def main():
     lof, hif = lo.to(dev), hi.to(dev)
     inv_f = fused.batch_inverse_dx(bxf, txf)
     mask_f = fused.range_glv_match(bxf, byf, txf, tyf, inv_f, lof, hif, remf)
-    for kname, run, plain, ref, replaces, err_small in (
+    N = K * B
+    M = fused._chain_len(N)
+    S = lo.shape[0]
+    # bytes of the per-window bases, the table and the inverses, read once
+    lane_in = 64 * K + 64 * B + 32 * N + 4 * K
+    chain_ops = N * (3 * FE_MUL + INV / M + FE_ADD)
+    # the x-only finish and beta x, beta^2 x of kernels B and E
+    finish_x_glv = 3 * FE_MUL + FE_SQR + 4 * FE_ADD
+    for kname, run, plain, ref, replaces, err_small, ops, nbytes in (
         ("batch_inverse_dx",
          lambda: fused.batch_inverse_dx(bxf, txf),
          lambda: fused.batch_inverse_dx_plain(bxf, txf),
-         inv_f, "vgen_tpu/ops/pallas_fused.py:502", err_a),
+         inv_f, "vgen_tpu/ops/pallas_fused.py:502", err_a,
+         chain_ops, 32 * K + 32 * B + 32 * N),
         ("range_glv_match",
          lambda: fused.range_glv_match(bxf, byf, txf, tyf, inv_f, lof, hif, remf),
          lambda: fused.range_glv_match_plain(bxf, byf, txf, tyf, inv_f, lof, hif, remf),
-         mask_f, "vgen_tpu/ops/pallas_fused.py:1271", err_b),
+         mask_f, "vgen_tpu/ops/pallas_fused.py:1271", err_b,
+         N * (finish_x_glv + 6 * (HASH160 + compare(S, 5))),
+         lane_in + 40 * S + 4 * N),
     ):
-        ms, plain_ms = time_kernel(kname, run, plain, ref, replaces,
-                                   launches[kname], err_small, f"K={K} B={B}")
+        ms, plain_ms, bms, bby = time_kernel(
+            kname, run, plain, ref, replaces, launches[kname], err_small,
+            f"K={K} B={B}", ops, nbytes)
         log(f"[6] {kname} at K={K} B={B}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bit-equal ({smi})")
+            f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({bby}), bit-equal ({smi})")
 
     # -- 7. timed scan -----------------------------------------------------
     stats = sc.benchmark_device(min_seconds=10.0)
@@ -489,29 +605,41 @@ def main():
     tab_e, acc_e, st_e = (t.to(dev) if torch.is_tensor(t) else t
                           for t in dfa_tensors(Pattern("Cat$"), fmt))
     lanes_f = (bxf, byf, txf, tyf, inv_f)
-    for kname, run, plain, replaces, path, err_small in (
+    # Base58Check of a P2PKH address: two more SHA-256 compressions, 49
+    # 64-bit divisions by 58^5 (8 each), 35 digit splits (5) and the
+    # 35-step walk
+    b58_walk = 2 * SHA256 + np.array([0, 49 * 8 + 35 * 5]) + 35 * DFA_STEP
+    finish_xy = 2 * FE_MUL + FE_SQR + 6 * FE_ADD
+    for kname, run, plain, replaces, path, err_small, ops, nbytes in (
         ("range_match",
          lambda: fused.range_match(*lanes_f, lof, hif, remf),
          lambda: fused.range_match_plain(*lanes_f, lof, hif, remf),
-         "vgen_tpu/ops/pallas_fused.py:1243", "range interval", err_c),
+         "vgen_tpu/ops/pallas_fused.py:1243", "range interval", err_c,
+         N * (finish_xy + HASH160 + compare(S, 5)), lane_in + 40 * S + 4 * N),
         ("dfa_match",
          lambda: fused.dfa_match(fmt, *lanes_f, tab_d, acc_d, st_d, remf),
          lambda: fused.dfa_match_plain(fmt, *lanes_f, tab_d, acc_d, st_d, remf),
-         "vgen_tpu/ops/pallas_fused.py:165", "range dfa", err_de["dfa_match"]),
+         "vgen_tpu/ops/pallas_fused.py:165", "range dfa", err_de["dfa_match"],
+         N * (finish_xy + HASH160 + b58_walk),
+         lane_in + 4 * (tab_d.numel() + acc_d.numel()) + 4 * N),
         ("glv_dfa_match",
          lambda: fused.glv_dfa_match(fmt, *lanes_f, tab_e, acc_e, st_e, remf),
          lambda: fused.glv_dfa_match_plain(fmt, *lanes_f, tab_e, acc_e, st_e,
                                            remf),
          "vgen_tpu/ops/pallas_fused.py:190", "random dfa p2pkh",
-         err_de["glv_dfa_match"]),
+         err_de["glv_dfa_match"],
+         N * (finish_x_glv + 6 * (HASH160 + b58_walk)),
+         lane_in + 4 * (tab_e.numel() + acc_e.numel()) + 4 * N),
     ):
         ref = run()
         hits = int((ref > 0).sum())
         require(hits > 0, f"{kname} at {shape}: no matching lane")
-        ms, plain_ms = time_kernel(kname, run, plain, ref, replaces,
-                                   path_launches[path][kname], err_small, shape)
+        ms, plain_ms, bms, bby = time_kernel(
+            kname, run, plain, ref, replaces, path_launches[path][kname],
+            err_small, shape, ops, nbytes)
         log(f"[14] {kname} at {shape}: kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.1f} ms, bit-equal, {hits} matching lanes ({smi})")
+            f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({bby}), bit-equal, "
+            f"{hits} matching lanes ({smi})")
         del ref
 
     # -- 15. timed DFA scan -------------------------------------------------
@@ -525,6 +653,240 @@ def main():
     log(f"[15] benchmark_device BenchNeverMatches$ (P2PKH, GLV DFA): "
         f"{stats['keys_per_sec']:,.0f} keys/s ({stats['operations']:,} keys "
         f"in {stats['elapsed']:.2f} s) on {smi}")
+
+    # -- 16. kernels F, G, H, I vs plain ------------------------------------
+    p2tr = AddressFormat.P2TR
+    K, B = 2, 8192
+    wt_c = tables.window_table("cpu")
+    wt_d = wt_c.to(dev)
+    bases16 = [1 + B // 2, 0x5EED5EED5EED]  # window 0: doubling lane at B/2
+    bx16, by16 = base_points(bases16)
+    rem16 = torch.tensor([B, B - 100], dtype=torch.int32)
+    inv16 = fused.batch_inverse_dx(bx16, txs)
+    cpu16 = (bx16, by16, txs, tys, inv16)
+    dev16 = tuple(t.to(dev) for t in cpu16)
+    err16 = {}
+
+    def same(kname, got, want, what=""):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(max_abs_err(g.cpu(), w) for g, w in zip(got, want))
+        err16[kname] = max(err16.get(kname, 0), err)
+        require(err == 0, f"{kname}{what} differs from its plain version "
+                f"({err})")
+
+    t0 = time.time()
+    F_c = fused.p2tr_ladder(*cpu16, wt_c)
+    plain_s = time.time() - t0
+    F_d = fused.p2tr_ladder(*dev16, wt_d)
+    torch.cuda.synchronize()
+    same("p2tr_ladder", F_d, F_c)
+    require(int(F_c[2].sum()) == K * B - 1 and int(F_c[2][bases16[0] - 1]) == 0,
+            "kernel F: ok is not 1 on every lane but the doubling lane")
+    xa, ya = (t[:, :4096].contiguous() for t in (txs, tys))
+    Fa_c = fused.p2tr_ladder_affine(xa, ya, wt_c)
+    Fa_d = fused.p2tr_ladder_affine(xa.to(dev), ya.to(dev), wt_d)
+    torch.cuda.synchronize()
+    same("p2tr_ladder", Fa_d, Fa_c, " (finish=False)")
+    Zg = F_c[1].clone()
+    Zg[:, 77] = 0  # a dead lane's Z
+    G_c = fused.batch_inverse_chain(Zg)
+    same("batch_inverse_chain", fused.batch_inverse_chain(Zg.to(dev)), G_c)
+    require(u256.to_ints(G_c[:, 77:78]) == [1], "kernel G: zero not guarded to 1")
+    X_c, Z_c, ok_c = F_c
+    zi_c = fused.batch_inverse_chain(Z_c)
+    X_d, Z_d, ok_d = F_d
+    zi_d = fused.batch_inverse_chain(Z_d)
+    same("batch_inverse_chain", zi_d, zi_c)
+    lo16, hi16 = lo_hi(Pattern("^bc1pq"), p2tr)
+    H_c = fused.p2tr_finish_range(X_c, Z_c, zi_c, ok_c, lo16, hi16, rem16)
+    H_d = fused.p2tr_finish_range(X_d, Z_d, zi_d, ok_d, lo16.to(dev),
+                                  hi16.to(dev), rem16.to(dev))
+    tab16, acc16, st16 = dfa_tensors(Pattern("q$"), p2tr)
+    I_c = fused.p2tr_finish_match(X_c, Z_c, zi_c, ok_c, tab16, acc16, st16,
+                                  rem16)
+    I_d = fused.p2tr_finish_match(X_d, Z_d, zi_d, ok_d, tab16.to(dev),
+                                  acc16.to(dev), st16, rem16.to(dev))
+    torch.cuda.synchronize()
+    same("p2tr_finish_range", H_d, H_c)
+    same("p2tr_finish_match", I_d, I_c)
+    require(int(H_c.sum()) > 0 and int(I_c.sum()) > 0,
+            "kernels H, I: no matching lane")
+    require(int(H_c[0, bases16[0] - 1]) == 0 and int(H_c[1, B - 100:].sum()) == 0,
+            "kernel H: a dead or out-of-window lane is set")
+    log(f"[16] kernels F (both flags), G (zero lane 77 -> 1), H (^bc1pq, "
+        f"{int(H_c.sum())} lanes), I (q$, {int(I_c.sum())} lanes) == plain on "
+        f"K={K} B={B} (plain ladder on CPU {plain_s:.1f} s)")
+    del F_d, Fa_d, X_d, Z_d, ok_d, zi_d
+
+    # -- 17, 18. random P2TR paths at full width through the CLI -------------
+    for argv, src, path, on, off in (
+            (["generate", "-f", "p2tr", "-p", "^bc1pqq", "-c", "3"], "^bc1pqq",
+             "random interval p2tr", "p2tr_finish_range", "p2tr_finish_match"),
+            (["generate", "-f", "p2tr", "-p", "qq$", "-c", "3"], "qq$",
+             "random dfa p2tr", "p2tr_finish_match", "p2tr_finish_range")):
+        reset_launches()
+        rows, _, secs = run_cli(argv)
+        got = path_launches[path] = read_launches()
+        require(len(rows) == 3, f"{argv}: expected 3 matches, got {len(rows)}")
+        confirm(rows, p2tr, Pattern(src))
+        require(all(got[k] > 0 for k in ("batch_inverse_dx", "p2tr_ladder",
+                                         "batch_inverse_chain", on))
+                and got[off] == 0,
+                f"{argv}: launches {got}, expected A, F, G, {on} and not {off}")
+        phase = 17 if on == "p2tr_finish_range" else 18
+        log(f"[{phase}] {' '.join(argv)} (B=524288, k_sub=8) in {secs:.1f} s: "
+            f"{[r['address'] for r in rows]} oracle-confirmed; launches {got}")
+
+    # -- 19. full-width P2TR DFA range against the native scanner -----------
+    src19 = "qq$"
+    start19 = 0xBEEF00000000
+    end19 = start19 + 2 * sc.DEFAULT_DEVICE_BATCH - 1
+    reset_launches()
+    rows, _, secs = run_cli(["range", "-f", "p2tr", "-r",
+                             f"{start19:x}:{end19:x}", "-p", src19, "-c", "0"])
+    got = path_launches["range dfa p2tr"] = read_launches()
+    # the Python oracle takes tens of ms per P2TR key: it re-derives a
+    # sample, and the whole set is held against the native scanner's
+    keys19 = sorted(int(r["private_key_hex"], 16) for r in rows)
+    confirm(random.Random(19).sample(rows, min(32, len(rows))), p2tr,
+            Pattern(src19))
+    t0 = time.time()
+    ref19 = _scan_cpu(Pattern(src19), ScanConfig(
+        format=p2tr, start=start19, end=end19, count=0, use_device=False),
+        None, None)
+    native_s = time.time() - t0
+    want19 = sorted(int(m.hex, 16) for m in ref19.matches)
+    require(keys19 == want19 and len(keys19) > 2 * pipeline.TOP_K,
+            f"P2TR DFA range: {len(keys19)} matches, native {len(want19)}")
+    require(rows[0]["operations"] == ref19.operations == end19 - start19 + 1,
+            f"P2TR DFA range: operations {rows[0]['operations']}, native "
+            f"{ref19.operations}")
+    require(got["p2tr_finish_match"] > 0 and got["p2tr_finish_range"] == 0,
+            f"P2TR DFA range: launches {got}, expected kernel I and not H")
+    log(f"[19] range -f p2tr {start19:x}:{end19:x} -p {src19} -c 0: "
+        f"{len(keys19)} matches in {secs:.1f} s == native scanner's "
+        f"({native_s:.1f} s); launches {got}")
+
+    # -- 20. kernels F, G, H, I vs plain at the main shape --------------------
+    K, B = sc.DEFAULT_K_SUB, sc.DEFAULT_DEVICE_BATCH
+    N = K * B
+    shape = f"K={K} B={B}"
+    lanes20 = (bxf, byf, txf, tyf, inv_f)
+    X_f, Z_f, ok_f = ref_f = fused.p2tr_ladder(*lanes20, wt_d)
+    zi_f = fused.batch_inverse_chain(Z_f)
+    lo20, hi20 = lo16.to(dev), hi16.to(dev)
+    S20 = lo20.shape[0]
+    tab20, acc20 = tab16.to(dev), acc16.to(dev)
+
+    def ladder_adds(x):
+        """The nonzero digits of the tweaks of x ((8, n) int64): the
+        ladder's adds on this run's data."""
+        t = sha256.tagged_hash_32(fused.TAPTWEAK_MIDSTATE, x)
+        return int(sum(((t[w // 4] >> (8 * (w % 4))) & 255).ne(0).sum()
+                       for w in range(32)))
+
+    x3, _, _ = curve.ec_finish(*fused._lanes(*lanes20))
+    adds = ladder_adds(x3.reshape(8, N))
+    del x3
+    # the plain ladder on one window first: K = 8 only if it fits in 60 s
+    inv_1 = inv_f[:, :B].contiguous()
+    plain_1 = lambda: fused.p2tr_ladder_plain(bxf[:1], byf[:1], txf, tyf,
+                                              inv_1, wt_d)
+    plain_k8_s = cuda_ms(plain_1, 1, warm=False) * K / 1e3
+    if plain_k8_s <= 60:
+        plain_f = lambda: fused.p2tr_ladder_plain(*lanes20, wt_d)
+        ref_plain, plain_shape = ref_f, shape
+    else:
+        plain_f = plain_1
+        ref_plain = (X_f[:, :B], Z_f[:, :B], ok_f[:B])
+        plain_shape = f"K=1 B={B} (K=8 estimated at {plain_k8_s:.0f} s)"
+    # per lane: the even-Y negation, the tweak's compression and t < n;
+    # per add (8M + 3S): six subtractions and 2V as an addition
+    tweak_ops = FE_ADD + SHA256 + np.array([0, 16])
+    add_ops = 8 * FE_MUL + 3 * FE_SQR + 7 * FE_ADD
+    ladder_ops = N * (finish_xy + tweak_ops) + adds * add_ops
+    finish_ops = N * (FE_MUL + FE_SQR)
+    finish_in = 100 * N + 4 * K
+    # bech32m: 58 five-bit groups (2 each: the witness program's 52 and the
+    # checksum's 6) and 58 polymod steps on them (12 each: shift, mask,
+    # the symbol's XOR and five conditional XORs of 2; the human-readable
+    # part and the witness version fold to constants); the 60-step walk
+    bech32m_walk = np.array([0, 58 * (2 + 12)]) + 60 * DFA_STEP
+    for kname, run, plain, ref, replaces, path, ops, nbytes, pshape in (
+        ("p2tr_ladder",
+         lambda: fused.p2tr_ladder(*lanes20, wt_d), plain_f, ref_plain,
+         "vgen_tpu/ops/pallas_fused.py:931", "random interval p2tr",
+         ladder_ops, lane_in + 32 * 256 * 2 * 8 * 4 + 68 * N, plain_shape),
+        ("batch_inverse_chain",
+         lambda: fused.batch_inverse_chain(Z_f),
+         lambda: fused.batch_inverse_chain_plain(Z_f), zi_f,
+         "vgen_tpu/ops/pallas_fused.py:441", "random interval p2tr",
+         N * (3 * FE_MUL + INV / fused._chain_len(N) + np.array([0, 8])),
+         64 * N, shape),
+        ("p2tr_finish_range",
+         lambda: fused.p2tr_finish_range(X_f, Z_f, zi_f, ok_f, lo20, hi20, remf),
+         lambda: fused.p2tr_finish_range_plain(X_f, Z_f, zi_f, ok_f, lo20, hi20,
+                                               remf), None,
+         "vgen_tpu/ops/pallas_fused.py:1074", "random interval p2tr",
+         finish_ops + N * compare(S20, 8), finish_in + 64 * S20 + 4 * N,
+         shape),
+        ("p2tr_finish_match",
+         lambda: fused.p2tr_finish_match(X_f, Z_f, zi_f, ok_f, tab20, acc20,
+                                         st16, remf),
+         lambda: fused.p2tr_finish_match_plain(X_f, Z_f, zi_f, ok_f, tab20,
+                                               acc20, st16, remf), None,
+         "vgen_tpu/ops/pallas_fused.py:1028", "random dfa p2tr",
+         finish_ops + N * bech32m_walk,
+         finish_in + 4 * (tab20.numel() + acc20.numel()) + 4 * N, shape),
+    ):
+        if ref is None:
+            ref = run()
+        hits = int((ok_f if kname == "p2tr_ladder" else ref).ne(0).sum())
+        require(hits > 0, f"{kname} at {shape}: no live or matching lane")
+        ms, plain_ms, bms, bby = time_kernel(
+            kname, run, plain, ref, replaces, path_launches[path][kname],
+            err16[kname], pshape, ops, nbytes, reps=3)
+        log(f"[20] {kname} at {shape}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms at {pshape}, bound {bms:.3f} ms ({bby}), "
+            f"bit-equal, {hits} live/matching lanes ({smi})")
+        del ref
+    xa_f, ya_f = txf[:, :B].contiguous(), tyf[:, :B].contiguous()
+    aff_ms = cuda_ms(lambda: fused.p2tr_ladder_affine(xa_f, ya_f, wt_d), 3)
+    aff_plain_ms = cuda_ms(lambda: plain_out.append(
+        fused.p2tr_ladder_affine_plain(xa_f, ya_f, wt_d)), 1, warm=False)
+    same("p2tr_ladder", fused.p2tr_ladder_affine(xa_f, ya_f, wt_d),
+         tuple(t.cpu() for t in plain_out.pop()), f" (finish=False) at N={B}")
+    adds_aff = ladder_adds(u256.to_i64(xa_f))
+    aff_bound, aff_by = bound(B * tweak_ops + adds_aff * add_ops,
+                              (64 + 68) * B + 32 * 256 * 2 * 8 * 4,
+                              sm_clocks_per_s)
+    require(aff_ms >= aff_bound, f"p2tr_ladder (finish=False): {aff_ms:.3f} "
+            f"ms beats its bound {aff_bound:.3f} ms")
+    log(f"[20] p2tr_ladder (finish=False) at N={B}: kernel {aff_ms:.3f} ms, "
+        f"plain {aff_plain_ms:.1f} ms, bound {aff_bound:.3f} ms ({aff_by}), "
+        f"bit-equal, {adds_aff:,} adds; the "
+        f"finish=True ladder did {adds:,} adds on {N:,} lanes ({smi})")
+    del X_f, Z_f, ok_f, ref_f, zi_f, ref_plain
+    torch.cuda.empty_cache()
+
+    # -- 21. timed P2TR scans, both routes -----------------------------------
+    for src, route, on, off in (
+            ("^bc1p" + "q" * 26, "interval", "p2tr_finish_range",
+             "p2tr_finish_match"),
+            ("z" * 20 + "$", "DFA", "p2tr_finish_match", "p2tr_finish_range")):
+        reset_launches()
+        stats = sc.benchmark_device(p2tr, src, min_seconds=5.0,
+                                    warmup_batches=1)
+        got = read_launches()
+        require(stats["keys_per_sec"] > 0, f"P2TR {route} benchmark: no keys")
+        require(got[on] > 0 and got[off] == 0,
+                f"P2TR {route} benchmark: launches {got}, expected {on} and "
+                f"not {off}")
+        log(f"[21] benchmark_device {src[:8]}... (P2TR {route}, one key per "
+            f"position): {stats['keys_per_sec']:,.0f} keys/s "
+            f"({stats['operations']:,} keys in {stats['elapsed']:.2f} s) on "
+            f"{smi}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

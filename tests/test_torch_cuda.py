@@ -8,10 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from vgen_tpu.crypto import secp256k1 as ec
-from vgen_tpu.crypto.address import AddressFormat
-from vgen_tpu.pattern import Pattern
+from vgen_tpu_torch.crypto import secp256k1 as ec
+from vgen_tpu_torch.crypto.address import AddressFormat
 from vgen_tpu_torch.ops import fused, pipeline, u256
+from vgen_tpu_torch.pattern import Pattern
 from vgen_tpu_torch.scan import tables
 
 pytestmark = pytest.mark.cuda
@@ -121,3 +121,78 @@ def test_wrapper_rejects_bad_input(dev):
         fused.batch_inverse_dx(bx, tx)
     with pytest.raises(ValueError):
         fused.batch_inverse_dx(bx.to(torch.int32), tx[:, ::2])
+
+
+# -- P2TR: kernels F to I ----------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def wt():
+    return tables.window_table("cpu")
+
+
+def test_p2tr_ladder_kernels_f_equal_plain(dev, wt):
+    """Kernel F, finish=True on both windows (the doubling lane included)
+    and finish=False on 256 oracle points."""
+    bx, by, tx, ty, _ = _step_inputs()
+    inv = fused.batch_inverse_dx(bx, tx)
+    cpu = (bx, by, tx, ty, inv, wt)
+    before = fused.p2tr_ladder.launches
+    got = fused.p2tr_ladder(*(a.to(dev) for a in cpu))
+    torch.cuda.synchronize()
+    assert fused.p2tr_ladder.launches == before + 1
+    for g, w in zip(got, fused.p2tr_ladder_plain(*cpu)):
+        assert torch.equal(g.cpu(), w)
+    x, y = (t[:, :256].contiguous() for t in (tx, ty))
+    got = fused.p2tr_ladder_affine(x.to(dev), y.to(dev), wt.to(dev))
+    assert fused.p2tr_ladder.launches == before + 2  # one kernel, two flags
+    for g, w in zip(got, fused.p2tr_ladder_affine_plain(x, y, wt)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_batch_inverse_chain_kernel_g_equals_plain(dev):
+    rng = np.random.default_rng(506)
+    vals = [int.from_bytes(rng.bytes(32), "big") % ec.P for _ in range(K * B)]
+    for dead in (0, 17, 95):
+        vals[dead] = 0
+    v = u256.as_i32(u256.from_ints(vals))
+    before = fused.batch_inverse_chain.launches
+    got = fused.batch_inverse_chain(v.to(dev))
+    torch.cuda.synchronize()
+    assert fused.batch_inverse_chain.launches == before + 1
+    assert torch.equal(got.cpu(), fused.batch_inverse_chain_plain(v))
+
+
+@pytest.mark.parametrize("kind", ["range", "dfa"], ids=["H", "I"])
+def test_p2tr_step_kernels_h_i_equal_plain(dev, wt, kind):
+    """Masks and packed rows of whole P2TR steps bit-equal, matches > 0."""
+    bx, by, tx, ty, rem = _step_inputs()
+    fmt = AddressFormat.P2TR
+    if kind == "range":
+        ivs = Pattern("^bc1pq").match_intervals(fmt)
+        lo, hi = (u256.as_i32(a) for a in pipeline.intervals_to_words(
+            ivs, n_words=8, n_slots=pipeline.interval_slot_count(len(ivs))))
+        margs, kernel = (lo, hi), fused.p2tr_finish_range
+        mask_step = fused.fused_p2tr_range_mask_step
+        step = fused.fused_p2tr_range_scan_step
+    else:
+        dfa = Pattern("q$").device_dfa(fmt)
+        margs = (torch.from_numpy(dfa.table.astype(np.int32)),
+                 torch.from_numpy(dfa.accept.astype(np.int32)), dfa.start)
+        kernel = fused.p2tr_finish_match
+        mask_step, step = fused.fused_p2tr_scan_mask_step, fused.fused_p2tr_scan_step
+
+    def on(d):
+        return tuple(a.to(d) if torch.is_tensor(a) else a for a in margs)
+
+    cpu = (bx, by, tx, ty)
+    gpu = tuple(a.to(dev) for a in cpu)
+    before = kernel.launches
+    got = mask_step(*gpu, *on(dev), rem.to(dev), wt.to(dev))
+    rows = step(*gpu, *on(dev), rem.to(dev), wt.to(dev))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    want = mask_step(*cpu, *margs, rem, wt)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(rows.cpu(), step(*cpu, *margs, rem, wt))
+    assert int(want.sum()) > 0

@@ -11,11 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from vgen_tpu.crypto.address import AddressFormat, AddressGenerator
-from vgen_tpu.crypto.encode import base58check_decode
+from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.ops import pipeline as jpipeline
-from vgen_tpu.pattern import Pattern
+from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator
+from vgen_tpu_torch.crypto.encode import base58check_decode
 from vgen_tpu_torch.ops import pipeline
+from vgen_tpu_torch.pattern import Pattern
+
+
+def _j(fmt):
+    """The JAX package's AddressFormat of the port's ``fmt``."""
+    return JAddressFormat(fmt.value)
 
 N = 256
 FORMATS = (AddressFormat.P2PKH, AddressFormat.P2WPKH)
@@ -62,7 +68,7 @@ def test_dfa_walk_equals_gather_reference_and_regex(addresses, fmt, case):
     flat, accept = jpipeline.pad_device_dfa(dfa)
     want = np.asarray(jpipeline.match_symbols_gather(
         jnp.asarray(flat), jnp.asarray(accept), dfa.start,
-        jpipeline.FORMAT_DFA_WIDTH[fmt], jnp.asarray(syms.numpy(),
+        jpipeline.FORMAT_DFA_WIDTH[_j(fmt)], jnp.asarray(syms.numpy(),
                                                      dtype=jnp.int32),
         jnp.asarray(length.numpy(), dtype=jnp.int32))).astype(bool)
     np.testing.assert_array_equal(got, want)

@@ -10,12 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from vgen_tpu.crypto import secp256k1 as ec
-from vgen_tpu.crypto.address import AddressFormat
+from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.ops import pipeline as jpipeline
-from vgen_tpu.pattern import Pattern
 from vgen_tpu.scan import tables as jtables
+from vgen_tpu_torch.crypto import secp256k1 as ec
+from vgen_tpu_torch.crypto.address import AddressFormat
 from vgen_tpu_torch.ops import fused, u256
+from vgen_tpu_torch.pattern import Pattern
 from vgen_tpu_torch.scan import tables
 
 B = 256
@@ -38,7 +39,7 @@ def test_glv_dfa_step_rows_match_packed_xla_scan_step():
 
     tx16, ty16 = jtables.ig_table_limbs(B)
     flat, accept = jpipeline.pad_device_dfa(dfa)
-    step = jpipeline.packed_xla_scan_step(P2PKH, "dfa", True, 16, 2, False)
+    step = jpipeline.packed_xla_scan_step(JAddressFormat.P2PKH, "dfa", True, 16, 2, False)
     ref = step(jnp.asarray(u256.limbs32_to_16(bx.T).T),
                jnp.asarray(u256.limbs32_to_16(by.T).T),
                jnp.asarray(tx16), jnp.asarray(ty16),

@@ -21,12 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-from vgen_tpu.crypto import secp256k1 as ec
-from vgen_tpu.crypto.address import AddressFormat, AddressGenerator
+from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.ops import pipeline as jpipeline
-from vgen_tpu.pattern import Pattern
 from vgen_tpu.scan import tables as jtables
+from vgen_tpu_torch.crypto import secp256k1 as ec
+from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator
 from vgen_tpu_torch.ops import fused, pipeline, u256
+from vgen_tpu_torch.pattern import Pattern
 from vgen_tpu_torch.scan import tables
 
 B = 256
@@ -36,6 +37,11 @@ FORMATS = (AddressFormat.P2PKH, AddressFormat.P2WPKH)
 INTERVAL = {AddressFormat.P2PKH: "^1C", AddressFormat.P2WPKH: "^bc1qq"}
 DFA = {AddressFormat.P2PKH: "q$", AddressFormat.P2WPKH: "[ad][02-9]"}
 fmt_ids = pytest.mark.parametrize("fmt", FORMATS, ids=lambda f: f.value)
+
+
+def _j(fmt):
+    """The JAX package's AddressFormat of the port's ``fmt``."""
+    return JAddressFormat(fmt.value)
 
 
 def _points(bases):
@@ -87,7 +93,7 @@ def test_range_match_vs_make_range_mask(fmt, port_inputs, oracle_points):
     lo, hi = _intervals(fmt)
     mask = fused.range_match(*port_inputs[:5], u256.as_i32(lo),
                              u256.as_i32(hi), port_inputs[5])
-    ref = jpipeline.make_range_mask(fmt, glv=False, unroll=True)
+    ref = jpipeline.make_range_mask(_j(fmt), glv=False, unroll=True)
     for k, (x3, y3) in enumerate(oracle_points):
         m, _ = ref(x3, y3, jnp.ones(B, dtype=bool), jnp.asarray(lo),
                    jnp.asarray(hi), jnp.int32(REMAINING[k]))
@@ -104,7 +110,7 @@ def test_dfa_match_vs_make_format_mask(fmt, glv, port_inputs, oracle_points):
                   torch.from_numpy(dfa.accept.astype(np.int32)), dfa.start,
                   port_inputs[5])
     flat, accept = jpipeline.pad_device_dfa(dfa)
-    ref = jpipeline.make_format_mask(fmt, unroll=True, glv=glv)
+    ref = jpipeline.make_format_mask(_j(fmt), unroll=True, glv=glv)
     for k, (x3, y3) in enumerate(oracle_points):
         m, _ = ref(x3, y3, jnp.ones(B, dtype=bool), jnp.asarray(flat),
                    jnp.asarray(accept), jnp.int32(dfa.start),
@@ -139,7 +145,7 @@ def test_range_scan_step_rows_match_reference(fmt, port_inputs,
     lo, hi = _intervals(fmt)
     rows = fused.fused_range_scan_step(fmt, bx, by, tx, ty, u256.as_i32(lo),
                                        u256.as_i32(hi), rem, glv=False)
-    ref = _ref_rows(jpipeline.make_range_tail(fmt, glv=False, unroll=True),
+    ref = _ref_rows(jpipeline.make_range_tail(_j(fmt), glv=False, unroll=True),
                     oracle_points, (jnp.asarray(lo), jnp.asarray(hi)))
     assert rows.shape == (2, pipeline.PACKED_WIDTH)
     np.testing.assert_array_equal(rows.numpy(), ref)
@@ -158,7 +164,7 @@ def test_dfa_scan_step_rows_match_reference(fmt, glv, port_inputs,
                                  torch.from_numpy(dfa.accept.astype(np.int32)),
                                  dfa.start, rem, glv=glv)
     flat, accept = jpipeline.pad_device_dfa(dfa)
-    ref = _ref_rows(jpipeline.make_format_tail(fmt, unroll=True, glv=glv),
+    ref = _ref_rows(jpipeline.make_format_tail(_j(fmt), unroll=True, glv=glv),
                     oracle_points,
                     (jnp.asarray(flat), jnp.asarray(accept),
                      jnp.int32(dfa.start)))
@@ -193,7 +199,7 @@ def test_whole_step_rows_match_packed_xla_scan_step(fmt, kind, port_inputs):
             glv=False)
         flat, accept = jpipeline.pad_device_dfa(dfa)
         margs = (jnp.asarray(flat), jnp.asarray(accept), jnp.int32(dfa.start))
-    step = jpipeline.packed_xla_scan_step(fmt, kind, False, 16, 2, False)
+    step = jpipeline.packed_xla_scan_step(_j(fmt), kind, False, 16, 2, False)
     ref = step(_to16(bx), _to16(by), jnp.asarray(tx16), jnp.asarray(ty16),
                jnp.asarray(REMAINING, dtype=jnp.int32), *margs)
     np.testing.assert_array_equal(rows.numpy(), np.asarray(ref))

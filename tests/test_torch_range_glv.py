@@ -12,13 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from vgen_tpu.crypto import secp256k1 as ec
-from vgen_tpu.crypto.address import AddressFormat, AddressGenerator
+from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.ops import curve as jcurve
 from vgen_tpu.ops import pipeline as jpipeline
-from vgen_tpu.pattern import Pattern
 from vgen_tpu.scan import tables as jtables
+from vgen_tpu_torch.crypto import secp256k1 as ec
+from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator
 from vgen_tpu_torch.ops import fused, pipeline, u256
+from vgen_tpu_torch.pattern import Pattern
 from vgen_tpu_torch.scan import tables
 
 B = 256
@@ -68,7 +69,7 @@ def _port_step(table, fmt, bases, remaining):
 @pytest.fixture(scope="module")
 def ref_mask_fn():
     def fn(x3, y3, valid, lo, hi, rem):
-        m, mvalid = jpipeline.make_range_mask(AddressFormat.P2PKH, glv=True)(
+        m, mvalid = jpipeline.make_range_mask(JAddressFormat.P2PKH, glv=True)(
             x3, y3, valid, lo, hi, rem)
         return m, jpipeline.mask_to_result(m, mvalid, 6)
 
@@ -106,7 +107,7 @@ def test_range_glv_match_vs_make_range_mask(table, ref_mask_fn):
 @pytest.fixture(scope="module")
 def ref_step():
     return jpipeline.packed_xla_scan_step(
-        AddressFormat.P2PKH, "range", True, CHAIN, 2, False)
+        JAddressFormat.P2PKH, "range", True, CHAIN, 2, False)
 
 
 def _ref_rows(ref_step, table, bases, remaining):

@@ -12,13 +12,15 @@ import types
 
 import pytest
 
-from vgen_tpu.crypto.address import AddressFormat, AddressGenerator
-from vgen_tpu.pattern import Pattern
+from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
+from vgen_tpu.pattern import Pattern as JPattern
 from vgen_tpu.scan import scanner as jsc
-from vgen_tpu.scan.checkpoint import CheckpointManager
-from vgen_tpu.scan.scanner import ScanConfig, StopFlag
 from vgen_tpu_torch import cli
+from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator
+from vgen_tpu_torch.pattern import Pattern
 from vgen_tpu_torch.scan import scanner as sc
+from vgen_tpu_torch.scan.checkpoint import CheckpointManager
+from vgen_tpu_torch.scan.host import ScanConfig, StopFlag
 
 B = 256
 P2PKH = AddressFormat.P2PKH
@@ -43,9 +45,12 @@ def scanners():
 
 
 def _reference(pat, **kw):
-    kw.setdefault("format", P2PKH)
+    """The JAX package's scan of the same pattern and range, through its
+    own types."""
+    kw["format"] = JAddressFormat(kw.get("format", P2PKH).value)
     return jsc.scan_with_progress(
-        pat, ScanConfig(device_batch_size=B, **kw))
+        JPattern(pat.original, pat.is_case_insensitive),
+        jsc.ScanConfig(device_batch_size=B, **kw))
 
 
 CASES = {
@@ -149,7 +154,9 @@ def test_plan_intervals_scales_by_scan_mode(scanners, start):
     got = scanners[1]._plan_intervals(pat, cfg)
     ref_self = types.SimpleNamespace(
         batch=B, PREFILTER_MAX_SURVIVORS=jsc.DeviceScanner.PREFILTER_MAX_SURVIVORS)
-    want = jsc.DeviceScanner._plan_intervals(ref_self, pat, cfg)
+    want = jsc.DeviceScanner._plan_intervals(
+        ref_self, JPattern(pat.original),
+        jsc.ScanConfig(format=JAddressFormat.P2PKH, start=start))
     assert got == want
     assert (got is not None) == (start is not None)
 
@@ -215,8 +222,8 @@ def test_cli_range_dfa_equals_native_scanner(capsys):
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
             if line]
     native = jsc.scan_with_progress(
-        Pattern(pat_src), ScanConfig(start=0x2000, end=0x27FF, count=0,
-                                     use_device=False))
+        JPattern(pat_src), jsc.ScanConfig(start=0x2000, end=0x27FF, count=0,
+                                          use_device=False))
     got = sorted(int(r["private_key_hex"], 16) for r in rows)
     assert got == sorted(_keys(native)) and len(got) > 10
     assert rows[0]["operations"] == native.operations == 0x800

@@ -4,7 +4,7 @@ list-devices.
 ``generate`` and ``range`` scan on the card (``--backend cuda``, the
 default; with no visible card they exit with an error), on CPU tensors
 through the kernels' plain versions (``--backend cpu``), or with
-``vgen_tpu``'s native C++ scanner (``--no-device``).  Nothing falls back
+the port's copy of the native C++ scanner (``--no-device``).  Nothing falls back
 from one to another.  ``estimate`` calibrates on the card only when one is
 visible.
 """
@@ -13,26 +13,29 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
-from vgen_tpu.cli import (
-    _TwoStageInterrupt,
-    _emit,
-    _to_vanity_results,
-    cmd_verify,
-    resolve_pattern_and_format,
-    resolve_range_params,
+from vgen_tpu_torch import provider as provider_mod
+from vgen_tpu_torch.crypto import secp256k1 as ec
+from vgen_tpu_torch.crypto.address import (
+    AddressFormat,
+    derive_all,
+    parse_private_key,
 )
-from vgen_tpu.crypto import secp256k1 as ec
-from vgen_tpu.crypto.address import AddressFormat
-from vgen_tpu.output import format_duration, format_with_commas
-from vgen_tpu.pattern import Pattern, RegexError
-from vgen_tpu.scan.checkpoint import CheckpointManager
-from vgen_tpu.scan.scanner import ScanConfig, ScanResult, StopFlag
+from vgen_tpu_torch.output import (
+    VanityResult,
+    format_duration,
+    format_with_commas,
+    write_results,
+)
+from vgen_tpu_torch.pattern import Pattern, RegexError
+from vgen_tpu_torch.scan.checkpoint import CheckpointManager
+from vgen_tpu_torch.scan.host import ScanConfig, ScanResult, StopFlag
 
 FORMATS = ["p2pkh", "p2wpkh", "p2sh-p2wpkh", "p2tr", "ethereum"]
 
@@ -108,6 +111,195 @@ def build_parser() -> argparse.ArgumentParser:
     ld = sub.add_parser("list-devices", help="List visible CUDA devices")
     ld.add_argument("--json", action="store_true")
     return p
+
+
+# The helpers below are the port's copies of vgen_tpu/cli.py's.
+
+
+def resolve_pattern_and_format(
+    pattern: str, prefix_length: Optional[int], default_format: AddressFormat
+) -> Tuple[str, AddressFormat]:
+    """lib.rs:563-590 parity."""
+    res = provider_mod.resolve(pattern)
+    if res is not None:
+        if prefix_length is not None:
+            if prefix_length == 0:
+                raise SystemExit(
+                    "error: --prefix-length must be at least 1 for provider patterns"
+                )
+            resolved = provider_mod.build_pattern(res, prefix_length)
+        else:
+            resolved = provider_mod.build_exact_pattern(res)
+        print(
+            f"Provider: {pattern} → {res.address} → pattern '{resolved}'",
+            file=sys.stderr,
+        )
+        return resolved, res.format
+    if prefix_length is not None:
+        print("Warning: --prefix-length is ignored for regex patterns",
+              file=sys.stderr)
+    return pattern, default_format
+
+
+def resolve_range_params(
+    pattern: str,
+    prefix_length: Optional[int],
+    default_format: AddressFormat,
+    range_str: Optional[str],
+    puzzle: Optional[int],
+) -> Tuple[int, int, str, AddressFormat]:
+    """lib.rs:592-663 parity."""
+    res = provider_mod.resolve(pattern)
+    if res is not None:
+        if prefix_length is not None:
+            if prefix_length == 0:
+                raise SystemExit(
+                    "error: --prefix-length must be at least 1 for provider patterns"
+                )
+            resolved = provider_mod.build_pattern(res, prefix_length)
+        else:
+            resolved = provider_mod.build_exact_pattern(res)
+        print(f"Provider: {pattern} → {res.address}", file=sys.stderr)
+        if range_str is not None or puzzle is not None:
+            start, end = parse_explicit_range(range_str, puzzle)
+        elif res.key_range is not None:
+            start, end = res.key_range
+        else:
+            raise SystemExit(
+                f"error: provider '{pattern}' has no key range; use --range or --puzzle"
+            )
+        return start, end, resolved, res.format
+    start, end = parse_explicit_range(range_str, puzzle)
+    return start, end, pattern, default_format
+
+
+def parse_explicit_range(
+    range_str: Optional[str], puzzle: Optional[int]
+) -> Tuple[int, int]:
+    if puzzle is not None:
+        if not 1 <= puzzle <= 160:
+            raise SystemExit("error: puzzle number must be between 1 and 160")
+        return 1 << (puzzle - 1), (1 << puzzle) - 1
+    if range_str is not None:
+        parts = range_str.split(":")
+        if len(parts) != 2:
+            raise SystemExit("error: range must be in format START:END")
+        try:
+            return int(parts[0], 16), int(parts[1], 16)
+        except ValueError:
+            raise SystemExit("error: invalid hex in range")
+    raise SystemExit(
+        "error: either --range, --puzzle, or a provider pattern with a key "
+        "range must be specified"
+    )
+
+
+class _TwoStageInterrupt:
+    """Ctrl+C: first press requests stop, second force-exits (lib.rs:1088-1097)."""
+
+    def __init__(self, stop_flag):
+        self.stop = stop_flag
+        self._prev = None
+
+    def __enter__(self):
+        def handler(signum, frame):
+            if self.stop.is_set():
+                sys.exit(1)
+            print("\nStopping... (press Ctrl+C again to force)", file=sys.stderr)
+            self.stop.set()
+
+        try:
+            self._prev = signal.signal(signal.SIGINT, handler)
+        except ValueError:  # not main thread (tests)
+            self._prev = None
+        return self
+
+    def __exit__(self, *exc):
+        if self._prev is not None:
+            signal.signal(signal.SIGINT, self._prev)
+
+
+def _to_vanity_results(result, pattern_str, fmt) -> List[VanityResult]:
+    rate = result.operations / result.elapsed_secs if result.elapsed_secs > 0 else 0.0
+    return [
+        VanityResult(
+            address=m.address,
+            wif=m.wif,
+            private_key_hex=m.hex,
+            format=fmt.display_name,
+            pattern=pattern_str,
+            operations=result.operations,
+            elapsed_secs=result.elapsed_secs,
+            rate=rate,
+        )
+        for m in result.matches
+    ]
+
+
+def _emit(results, output, file, quiet, result):
+    if file:
+        with open(file, "w") as f:
+            write_results(results, output, f, quiet)
+        if results and not quiet:
+            print(f"Wrote {len(results)} result(s) to {file}", file=sys.stderr)
+    else:
+        write_results(results, output, sys.stdout, quiet)
+    if not results and not quiet:
+        print(
+            f"No match found after {format_with_commas(result.operations)} "
+            f"operations ({format_duration(result.elapsed_secs)})",
+            file=sys.stderr,
+        )
+
+
+def cmd_verify(args) -> int:
+    """lib.rs:377-494 parity."""
+    try:
+        secret = parse_private_key(args.key)
+    except (ValueError, Exception) as e:
+        print(f"error: invalid key format (not WIF or hex): {e}", file=sys.stderr)
+        return 2
+    d = derive_all(secret)
+    is_wif = not set(args.key.lower()).issubset(set("0123456789abcdefx"))
+    print(f"Private key: {args.key if is_wif else d['wif']}")
+    print(f"WIF (uncompr.):     {d['wif_uncompressed']}")
+    print(f"Hex: {d['hex']}")
+    print()
+    print(f"P2PKH address:      {d['p2pkh']}")
+    print(f"P2PKH (uncompr.):   {d['p2pkh_uncompressed']}")
+    print(f"P2WPKH address:     {d['p2wpkh']}")
+    print(f"P2SH-P2WPKH addr:  {d['p2sh_p2wpkh']}")
+    print(f"P2TR address:       {d['p2tr']}")
+    print(f"Ethereum address:   {d['ethereum']}")
+
+    if args.address:
+        expected = args.address
+        # BIP173: bech32 allows all-lower or all-upper; normalize single-case
+        is_bech32 = expected[:3].lower() == "bc1"
+        alpha = [c for c in expected if c.isalpha()]
+        single_case = all(c.islower() for c in alpha) or all(
+            c.isupper() for c in alpha
+        )
+        normalized = expected.lower() if (is_bech32 and single_case) else expected
+
+        candidates = [
+            d["p2pkh"], d["p2pkh_uncompressed"], d["p2wpkh"],
+            d["p2sh_p2wpkh"], d["p2tr"], d["ethereum"],
+        ]
+        is_raw_eth = len(normalized) == 40 and all(
+            c in "0123456789abcdefABCDEF" for c in normalized
+        )
+        eth_normalized = "0x" + normalized if is_raw_eth else normalized
+
+        if normalized in candidates:
+            print("\nMATCH!")
+        elif eth_normalized[:2].lower() == "0x" and d[
+            "ethereum"
+        ].lower() == eth_normalized.lower():
+            print("\nMATCH! (Ethereum, case-insensitive)")
+        else:
+            print(f"\nMISMATCH! Expected: {expected}")
+    return 0
 
 
 def resolve_device(backend: str, no_device: bool) -> Optional[str]:
@@ -217,9 +409,9 @@ def cmd_range(args) -> int:
 def cmd_estimate(args) -> int:
     """Difficulty and the native CPU scanner's rate; with a visible card,
     about 2 s of the port's device scan on the pattern's own route."""
-    from vgen_tpu import native
-    from vgen_tpu.scan.scanner import benchmark
+    from vgen_tpu_torch import native
     from vgen_tpu_torch.ops import fused
+    from vgen_tpu_torch.scan.host import benchmark
     from vgen_tpu_torch.scan import scanner as sc
 
     fmt = AddressFormat.from_str(args.format)
@@ -245,10 +437,9 @@ def cmd_estimate(args) -> int:
     if not torch.cuda.is_available():
         print("Note: no CUDA card is visible; no device calibration.")
         return 0
-    if fmt not in fused.HASH160_FORMATS:
+    if fmt not in fused.DEVICE_FORMATS:
         print(f"Note: the port's device scan does not cover {fmt.value} "
-              "yet (ROADMAP queue 1 items 10 and 13); no device "
-              "calibration.")
+              "yet (ROADMAP queue 1 item 10); no device calibration.")
         return 0
     print("Calibrating on the card...", file=sys.stderr)
     stats = sc.benchmark_device(fmt, pattern_str, min_seconds=2.0,

@@ -1,5 +1,6 @@
-// Address symbols of a hash160, per thread: Base58Check for P2PKH (version
-// byte 0) and bech32 for P2WPKH (witness version 0).  The symbols are digit
+// Address symbols, per thread: Base58Check for P2PKH (version byte 0) and
+// bech32 for P2WPKH (witness version 0) from a hash160, bech32m for P2TR
+// (witness version 1) from the output key's x.  The symbols are digit
 // values in the format's alphabet, the input of the DFA walk (dfa.cuh), as
 // vgen_tpu/ops/encode.py emits them; no ASCII is formed.
 //
@@ -12,6 +13,7 @@ namespace vg {
 
 constexpr int kBase58Syms = 34;  // symbols of a version-0 Base58Check address
 constexpr int kBech32Syms = 39;  // [witver] + 32 groups + 6 checksum symbols
+constexpr int kBech32mSyms = 59;  // [witver 1] + 52 groups + 6 checksum symbols
 constexpr unsigned long long kB58Pow5 = 656356768ull;  // 58^5 < 2^32
 
 // First big-endian word of SHA256d(version || h160): the four Base58Check
@@ -109,6 +111,9 @@ VG_CONSTANT uint32_t BECH32_GEN[5] = {0x3B6A57B2u, 0x26508E6Du, 0x1EA119FAu,
 // polymod state after the constant prefix: the expansion of hrp "bc" and
 // witness version 0 (vgen_tpu/ops/encode.py _polymod_init("bc", 0))
 constexpr uint32_t kBech32InitBcV0 = 0x3D5A5FD2u;
+// ... and of "bc" with witness version 1 (_polymod_init("bc", 1))
+constexpr uint32_t kBech32InitBcV1 = 0x3D5A5FD3u;
+constexpr uint32_t kBech32mConst = 0x2BC830A3u;  // BIP350
 
 VG_FN uint32_t bech32_polymod_step(uint32_t chk, uint32_t v) {
   const uint32_t top = chk >> 25;
@@ -140,6 +145,29 @@ VG_FN void bech32_p2wpkh_symbols(uint8_t syms[kBech32Syms],
   chk ^= 1u;
 #pragma unroll
   for (int i = 0; i < 6; i++) syms[33 + i] = (uint8_t)((chk >> (5 * (5 - i))) & 31u);
+}
+
+// bech32m symbols of a P2TR address after "bc1": witness version 1, the
+// 256 bits of x (8 little-endian limbs, x[7] the most significant) as 52
+// five-bit groups, most significant first, the last padded with 4 zero
+// bits, and the 6 checksum symbols (bech32m constant).  Always 59 symbols.
+VG_FN void bech32m_p2tr_symbols(uint8_t syms[kBech32mSyms], const uint32_t x[8]) {
+  syms[0] = 1;
+  uint32_t chk = kBech32InitBcV1;
+#pragma unroll
+  for (int g = 0; g < 52; g++) {
+    const int o = 5 * g, i = o >> 5, s = o & 31;  // word i of x big-endian
+    const unsigned long long two =
+        ((unsigned long long)x[7 - i] << 32) | (i + 1 < 8 ? x[6 - i] : 0u);
+    const uint32_t v = (uint32_t)(two >> (59 - s)) & 31u;
+    syms[1 + g] = (uint8_t)v;
+    chk = bech32_polymod_step(chk, v);
+  }
+#pragma unroll
+  for (int i = 0; i < 6; i++) chk = bech32_polymod_step(chk, 0u);
+  chk ^= kBech32mConst;
+#pragma unroll
+  for (int i = 0; i < 6; i++) syms[53 + i] = (uint8_t)((chk >> (5 * (5 - i))) & 31u);
 }
 
 }  // namespace vg

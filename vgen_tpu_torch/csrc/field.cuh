@@ -98,6 +98,74 @@ VG_FN void fe_sub(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   }
 }
 
+// r = a + b mod p (a, b canonical).  A carry out of 2^256 is worth
+// 2^32 + 977, and then the folded sum is already < p; otherwise the sum
+// (< 2^256) is normalized.
+VG_FN void fe_add(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+  u64 c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    c += (u64)a[i] + b[i];
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  const uint32_t carry = (uint32_t)c;
+  c = (u64)r[0] + 977u * carry;
+  r[0] = (uint32_t)c;
+  c = (c >> 32) + (u64)r[1] + carry;
+  r[1] = (uint32_t)c;
+  c >>= 32;
+#pragma unroll
+  for (int i = 2; i < 8; i++) {
+    c += r[i];
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  fe_normalize(r);
+}
+
+// r = -a mod p, canonical (-0 = 0), so r[0] & 1 is the parity of -a.
+VG_FN void fe_neg(uint32_t r[8], const uint32_t a[8]) {
+  const uint32_t m = fe_is_zero(a) ? 0u : ~0u;
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    const uint32_t pi = i == 0 ? 0xFFFFFC2Fu : (i == 1 ? 0xFFFFFFFEu : ~0u);
+    const u64 t = (u64)pi - a[i] - borrow;
+    r[i] = (uint32_t)t & m;
+    borrow = (uint32_t)(t >> 63);
+  }
+}
+
+// r = a * k mod p for a small constant k < 2^16.
+VG_FN void fe_mul_small(uint32_t r[8], const uint32_t a[8], uint32_t k) {
+  u64 c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    c += (u64)a[i] * k;
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  // fold the top (< 2^16) as top * (2^32 + 977); a second carry leaves a
+  // small low part, so its fold cannot carry again
+#pragma unroll
+  for (int f = 0; f < 2; f++) {
+    const uint32_t top = (uint32_t)c;
+    c = (u64)r[0] + (u64)977u * top;
+    r[0] = (uint32_t)c;
+    c = (c >> 32) + (u64)r[1] + top;
+    r[1] = (uint32_t)c;
+    c >>= 32;
+#pragma unroll
+    for (int i = 2; i < 8; i++) {
+      c += r[i];
+      r[i] = (uint32_t)c;
+      c >>= 32;
+    }
+  }
+  fe_normalize(r);
+}
+
 // r = a * b mod p.  r may alias a or b.
 VG_FN void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   uint32_t t[16];

@@ -30,21 +30,42 @@ VG_FN void dx_of(uint32_t r[8], const uint32_t* bx, const uint32_t* tx,
   if (fe_is_zero(r)) r[0] = 1u;
 }
 
-// Kernel A, thread t of T = N / M: a Montgomery chain over the M elements
-// e = t + j*T (strided by the thread count, so each step's loads and stores
-// coalesce).  Forward: exclusive prefix products into scratch.  One
-// inversion of the chain total.  Backward: inv[e] = acc * prefix[e],
-// acc *= dx[e].  dx is recomputed from tx and bx instead of stored.
-VG_FN void inv_dx_thread(const uint32_t* bx, const uint32_t* tx,
-                         uint32_t* out, uint32_t* scratch, long B, long N,
-                         long T, int M, long t) {
-  uint32_t acc[8], dx[8], pre[8];
+// The chain inputs of kernel A: dx of element e, recomputed from tx and bx
+// instead of stored.
+struct DxInput {
+  const uint32_t* bx;
+  const uint32_t* tx;
+  long B;
+  VG_FN void operator()(uint32_t r[8], long e) const { dx_of(r, bx, tx, B, e); }
+};
+
+// The chain inputs of kernel G: element e of a materialized (8, N) array,
+// a zero replaced by 1 (so its "inverse" is exactly 1).
+struct GuardedInput {
+  const uint32_t* v;
+  long N;
+  VG_FN void operator()(uint32_t r[8], long e) const {
+    fe_load(r, v, N, e);
+    if (fe_is_zero(r)) r[0] = 1u;
+  }
+};
+
+// Kernels A and G, thread t of T = N / M: a Montgomery chain over the M
+// elements e = t + j*T (strided by the thread count, so each step's loads
+// and stores coalesce).  Forward: exclusive prefix products into scratch.
+// One inversion of the chain total.  Backward: inv[e] = acc * prefix[e],
+// acc *= in(e).  The output is canonical, so the chain geometry does not
+// change the result.
+template <class Input>
+VG_FN void inv_chain_thread(const Input& in, uint32_t* out, uint32_t* scratch,
+                            long N, long T, int M, long t) {
+  uint32_t acc[8], v[8], pre[8];
   fe_set_one(acc);
   for (int j = 0; j < M; j++) {
     const long e = t + j * T;
     fe_store(scratch, N, e, acc);
-    dx_of(dx, bx, tx, B, e);
-    fe_mul(acc, acc, dx);
+    in(v, e);
+    fe_mul(acc, acc, v);
   }
   fe_inv(acc, acc);
   for (int j = M - 1; j >= 0; j--) {
@@ -52,20 +73,28 @@ VG_FN void inv_dx_thread(const uint32_t* bx, const uint32_t* tx,
     fe_load(pre, scratch, N, e);
     fe_mul(pre, acc, pre);
     fe_store(out, N, e, pre);
-    dx_of(dx, bx, tx, B, e);
-    fe_mul(acc, acc, dx);
+    in(v, e);
+    fe_mul(acc, acc, v);
   }
 }
 
-// Lexicographic lo[s] <= w <= hi[s] for any slot s (word 0 most
-// significant).  Padding slots have lo > hi and never match.
-VG_FN bool in_intervals(const uint32_t w[5], const uint32_t* lo,
+// Kernel A's thread: the chain over the window differences.
+VG_FN void inv_dx_thread(const uint32_t* bx, const uint32_t* tx,
+                         uint32_t* out, uint32_t* scratch, long B, long N,
+                         long T, int M, long t) {
+  inv_chain_thread(DxInput{bx, tx, B}, out, scratch, N, T, M, t);
+}
+
+// Lexicographic lo[s] <= w <= hi[s] for any slot s of W words (word 0
+// most significant).  Padding slots have lo > hi and never match.
+template <int W = 5>
+VG_FN bool in_intervals(const uint32_t w[W], const uint32_t* lo,
                         const uint32_t* hi, int n_slots) {
   bool hit = false;
   for (int s = 0; s < n_slots; s++) {
     int ge = 0, le = 0;  // 0 undecided, 1 true, -1 false
-    for (int i = 0; i < 5; i++) {
-      const uint32_t l = lo[s * 5 + i], h = hi[s * 5 + i];
+    for (int i = 0; i < W; i++) {
+      const uint32_t l = lo[s * W + i], h = hi[s * W + i];
       if (ge == 0 && w[i] != l) ge = w[i] > l ? 1 : -1;
       if (le == 0 && w[i] != h) le = w[i] < h ? 1 : -1;
     }

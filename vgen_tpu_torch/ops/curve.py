@@ -4,7 +4,8 @@ The scan adds one base point B = k*G to every table point T[i] = i*G and
 shares one batch inversion of dx = tx - bx across the batch
 (``fused.batch_inverse_dx``).  On the card ``csrc/scan_lanes.cuh``
 ``lane_add`` does both finishes: x only (kernels B and E) and x and y
-(kernels C and D).
+(kernels C and D).  The P2TR tweak ladder (kernel F,
+``csrc/p2tr_lanes.cuh``) accumulates with ``jacobian_add_affine_lean``.
 """
 
 from __future__ import annotations
@@ -39,3 +40,24 @@ def ec_finish(bx, by, tx, ty, inv_dx):
     valid = ~u256.is_zero(field.sub(tx, bx))
     x3, y3 = affine_add_batch(bx, by, tx, ty, inv_dx)
     return x3, y3, valid
+
+
+def jacobian_add_affine_lean(X1, Y1, Z1, x2, y2):
+    """Mixed add of a Jacobian (X1, Y1, Z1) and an affine (x2, y2) without
+    the doubling and infinity fallbacks: 8M + 3S.  Returns (X3, Y3, Z3, ok)
+    with ok False where H == 0 (P == +-Q, which would need a doubling or
+    gives infinity); the caller masks those lanes (the counterpart of
+    ``vgen_tpu/ops/curve.py`` ``jacobian_add_affine_lean``)."""
+    Z1Z1 = field.square(Z1)
+    U2 = field.mul(x2, Z1Z1)
+    S2 = field.mul(field.mul(y2, Z1), Z1Z1)
+    H = field.sub(U2, X1)
+    r = field.sub(S2, Y1)
+    ok = ~u256.is_zero(H)
+    HH = field.square(H)
+    HHH = field.mul(H, HH)
+    V = field.mul(X1, HH)
+    X3 = field.sub(field.sub(field.square(r), HHH), field.mul_small(V, 2))
+    Y3 = field.sub(field.mul(r, field.sub(V, X3)), field.mul(Y1, HHH))
+    Z3 = field.mul(Z1, H)
+    return X3, Y3, Z3, ok

@@ -1,7 +1,8 @@
 """hash160 of a compressed public key from x limbs, and the address symbols
 of a hash160: Base58Check (P2PKH) and bech32 (P2WPKH) digit values in the
-format's alphabet, what the DFA walks (plain PyTorch versions of
-``csrc/encode.cuh``; counterparts of ``vgen_tpu/ops/encode.py``).
+format's alphabet, and the bech32m symbols of a P2TR output key: what the
+DFA walks (plain PyTorch versions of ``csrc/encode.cuh``; counterparts of
+``vgen_tpu/ops/encode.py``).
 
 Words and digits are int64 tensors; hash160s are 5 big-endian uint32
 words.  The reference's base-58 conversion is an f32 matmul against a
@@ -20,6 +21,8 @@ from vgen_tpu_torch.ops import ripemd160, sha256
 M32 = 0xFFFFFFFF
 BASE58_SYMS = 34  # symbols of a version-0 Base58Check address, at most
 BECH32_SYMS = 39  # [witver] + 32 five-bit groups + 6 checksum symbols
+BECH32M_SYMS = 59  # [witver 1] + 52 five-bit groups + 6 checksum symbols
+BECH32M_CONST = 0x2BC830A3  # BIP350
 _B58_POW5 = 58 ** 5  # < 2^32, so (remainder << 32) | word stays < 2^62
 
 _BECH32_GEN = (0x3B6A57B2, 0x26508E6D, 0x1EA119FA, 0x3D4233DD, 0x2A1462B3)
@@ -110,6 +113,7 @@ def _polymod_step(chk, v):
 
 
 BECH32_INIT_BC_V0 = polymod_init("bc", 0)  # csrc/encode.cuh kBech32InitBcV0
+BECH32_INIT_BC_V1 = polymod_init("bc", 1)  # csrc/encode.cuh kBech32InitBcV1
 
 
 def bech32_p2wpkh_symbols(h160w: List[torch.Tensor]
@@ -134,3 +138,29 @@ def bech32_p2wpkh_symbols(h160w: List[torch.Tensor]
     checksum = [(chk >> (5 * (5 - i))) & 31 for i in range(6)]
     syms = torch.stack([torch.zeros_like(chk)] + groups + checksum)
     return syms, torch.full_like(chk, BECH32_SYMS)
+
+
+def bech32m_p2tr_symbols(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bech32m symbols of a P2TR address after "bc1" -> (syms (59, *S)
+    int64, length (*S,) = 59): witness version 1, the output key's 256 bits
+    (x: (8, *S) int64 32-bit limbs, limb 7 the most significant) as 52
+    five-bit groups, most significant first, the last padded with 4 zero
+    bits, and the six checksum symbols (bech32m constant 0x2BC830A3).  The
+    counterpart of ``segwit_symbols(program, 1)``."""
+    bits = [(x[7 - i // 32] >> (31 - i % 32)) & 1 for i in range(256)]
+    bits += [torch.zeros_like(x[0])] * 4
+    groups = []
+    for g in range(52):
+        v = torch.zeros_like(x[0])
+        for j in range(5):
+            v = (v << 1) | bits[5 * g + j]
+        groups.append(v)
+    chk = torch.full_like(x[0], BECH32_INIT_BC_V1)
+    for v in groups:
+        chk = _polymod_step(chk, v)
+    for _ in range(6):
+        chk = _polymod_step(chk, 0)
+    chk = chk ^ BECH32M_CONST
+    checksum = [(chk >> (5 * (5 - i))) & 31 for i in range(6)]
+    syms = torch.stack([torch.ones_like(chk)] + groups + checksum)
+    return syms, torch.full_like(chk, BECH32M_SYMS)

@@ -14,13 +14,13 @@ from __future__ import annotations
 
 import torch
 
-from vgen_tpu.crypto.secp256k1 import N as N_INT
-from vgen_tpu.crypto.secp256k1 import P as P_INT
+from vgen_tpu_torch.crypto.secp256k1 import N as N_INT
+from vgen_tpu_torch.crypto.secp256k1 import P as P_INT
 from vgen_tpu_torch.ops import u256
 from vgen_tpu_torch.ops.u256 import MASK32, NLIMBS
 
-__all__ = ["P_INT", "N_INT", "normalize", "sub", "mul", "square", "inv",
-           "batch_inverse_chain"]
+__all__ = ["P_INT", "N_INT", "normalize", "add", "sub", "neg", "mul_small",
+           "mul", "square", "inv", "batch_inverse_chain"]
 
 _C = 977
 
@@ -38,6 +38,36 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # on borrow d = a - b + 2^256; adding p is subtracting 2^32 + 977
     d2, _ = u256.sub(d, u256.constant((1 << 32) + _C, d))
     return u256.select(borrow == 1, d2, d)
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p for canonical a, b: a carry out of 2^256 is worth
+    2^32 + 977, and the folded sum is < 2p."""
+    s, carry = u256.add(a, b)
+    s2, _ = u256.add(s, u256.constant((1 << 32) + _C, s))
+    # carry set: the true sum s + 2^256 - p = s + 2^32 + 977 < p
+    return normalize(u256.select(carry == 1, s2, s))
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    """-a mod p, canonical (-0 = 0), so ``neg(y)[0] & 1`` is the parity."""
+    d, _ = u256.sub(u256.constant(P_INT, a), a)
+    return u256.select(u256.is_zero(a), a, d)
+
+
+def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:
+    """a * k mod p for a small constant 0 <= k < 2^16."""
+    cols = [a[i] * k for i in range(NLIMBS)]
+    r, top = _carry(cols, 32)  # top < 2^16
+    # fold: top * 2^256 = top * (2^32 + 977); the result is < 2^256 + p,
+    # and one more fold of a carry leaves a value < 2p
+    r[0] = r[0] + top * _C
+    r[1] = r[1] + top
+    r, c = _carry(r, 32)
+    r[0] = r[0] + c * _C
+    r[1] = r[1] + c
+    r, _ = _carry(r, 32)
+    return normalize(torch.stack(r))
 
 
 def _carry(cols, bits: int):

@@ -14,8 +14,8 @@ from typing import List
 import numpy as np
 import torch
 
-from vgen_tpu.crypto import secp256k1 as ec
-from vgen_tpu.crypto.address import AddressFormat
+from vgen_tpu_torch.crypto import secp256k1 as ec
+from vgen_tpu_torch.crypto.address import AddressFormat
 from vgen_tpu_torch.ops import encode, field, u256
 
 TOP_K = 16  # index slots per window in a packed row
@@ -27,6 +27,16 @@ MAX_INTERVALS = 8  # comparator slots
 FORMAT_DFA_WIDTH = {
     AddressFormat.P2PKH: 60,
     AddressFormat.P2WPKH: 34,
+    AddressFormat.P2TR: 34,
+}
+
+# big-endian 32-bit words of the value the interval route compares
+# (``INTERVAL_WORDS``): hash160 for P2PKH and P2WPKH, the output key's x
+# for P2TR
+INTERVAL_WORDS = {
+    AddressFormat.P2PKH: 5,
+    AddressFormat.P2WPKH: 5,
+    AddressFormat.P2TR: 8,
 }
 
 GLV_FORMATS = (
@@ -103,6 +113,12 @@ def top_k_match_indices(scores: torch.Tensor) -> torch.Tensor:
     (scores are the index for a match and -1 otherwise, so the result is
     the highest matching indices padded with -1)."""
     return torch.topk(scores, TOP_K, dim=-1, sorted=True).values
+
+
+def x_words(x: torch.Tensor) -> List[torch.Tensor]:
+    """The interval value of P2TR: the output key's x as 8 big-endian
+    words, from (8, *S) int64 limbs."""
+    return [x[7 - i] for i in range(8)]
 
 
 def hash160_words(x3: torch.Tensor, y3: torch.Tensor) -> List[torch.Tensor]:

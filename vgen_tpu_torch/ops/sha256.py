@@ -1,5 +1,6 @@
-"""SHA-256 of a compressed public key built straight from 32-bit limbs
-(plain PyTorch version of ``csrc/sha256.cuh``).
+"""SHA-256 of a compressed public key built straight from 32-bit limbs,
+and the BIP340 tagged hash of a 32-byte value (plain PyTorch versions of
+``csrc/sha256.cuh``).
 
 Words are int64 tensors holding uint32 values; every sum is masked with
 ``& 0xFFFFFFFF``.  No partial evaluation: the CUDA compiler folds the
@@ -8,7 +9,8 @@ constant schedule words itself.
 
 from __future__ import annotations
 
-from typing import List
+import hashlib
+from typing import List, Tuple
 
 import torch
 
@@ -78,3 +80,25 @@ def sha256_x33_state(x: torch.Tensor, parity) -> List[torch.Tensor]:
     like = x[0]
     return compress([torch.full_like(like, v) for v in IV],
                     x33_schedule_words(x, parity))
+
+
+def tagged_midstate(tag: str) -> Tuple[int, ...]:
+    """Host: the SHA-256 state after the first block of a BIP340 tagged
+    hash, SHA256(tag) || SHA256(tag) (the counterpart of
+    ``vgen_tpu/ops/sha256.py`` ``tagged_midstate``)."""
+    t = hashlib.sha256(tag.encode()).digest()
+    block = t + t
+    w = [int.from_bytes(block[4 * i:4 * i + 4], "big") for i in range(16)]
+    return tuple(compress(list(IV), w))
+
+
+def tagged_hash_32(midstate, x: torch.Tensor) -> torch.Tensor:
+    """SHA256(SHA256(tag) || SHA256(tag) || x_be) from the tag's
+    ``midstate``: one compression of x's 32 big-endian bytes and the
+    padding of a 96-byte message.  x: (8, *S) int64 32-bit limbs (limb 7 the
+    most significant) -> the digest as a 256-bit big-endian number in the
+    same limb layout."""
+    w = [x[7 - i] for i in range(8)]
+    w += [0x80000000, 0, 0, 0, 0, 0, 0, 96 * 8]
+    st = compress([torch.full_like(x[0], v) for v in midstate], w)
+    return torch.stack(st[::-1])

@@ -1,13 +1,15 @@
 """Device scan loop: random and range scans, interval and DFA routes.
 
 The counterpart of ``vgen_tpu/scan/scanner.py`` ``DeviceScanner`` for the
-hash160 formats (P2PKH, P2WPKH).  A pattern that compiles to hash160
-intervals (an anchored literal, or a selective literal prefix whose
-survivors the host checks against the full regex) takes the interval step;
-any other regex takes the DFA step.  Random scans check six GLV keys per
-table position; range scans (``config.start`` set) check each key of
-[start, end] once, report matches in key order, and keep a checkpoint when
-``config.checkpoint`` is set.
+hash160 formats (P2PKH, P2WPKH) and P2TR.  A pattern that compiles to
+intervals of the format's value (hash160, or the P2TR output key's x: an
+anchored literal, or a selective literal prefix whose survivors the host
+checks against the full regex) takes the interval step; any other regex
+takes the DFA step.  Random scans of the hash160 formats check six GLV keys
+per table position; P2TR checks one (the tweak rebinds the key).  Range
+scans (``config.start`` set) check each key of [start, end] once, report
+matches in key order, and keep a checkpoint when ``config.checkpoint`` is
+set.
 
 The host computes one base point per window, keeps a few super-steps in
 flight (each packed result is copied into pinned host memory behind a CUDA
@@ -27,10 +29,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from vgen_tpu.crypto import secp256k1 as ec
-from vgen_tpu.crypto.address import AddressFormat, AddressGenerator, GeneratedAddress
-from vgen_tpu.pattern import Pattern
-from vgen_tpu.scan.scanner import (
+from vgen_tpu_torch.crypto import secp256k1 as ec
+from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator, GeneratedAddress
+from vgen_tpu_torch.pattern import Pattern
+from vgen_tpu_torch.scan.host import (
     ProgressCallback,
     ScanConfig,
     ScanResult,
@@ -65,13 +67,16 @@ class DeviceScanner:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceScanner: no CUDA device is visible")
         self.tx, self.ty = tables.ig_table(batch_size, self.device)
+        # the P2TR ladder's window table, uploaded once per scanner
+        self.wt = (tables.window_table(self.device)
+                   if fmt == AddressFormat.P2TR else None)
 
     def _plan_intervals(self, pattern: Pattern, config: ScanConfig):
         """Exact intervals for an anchored literal; else the longest-prefix
         over-approximation when its expected survivors per window (six keys
-        per position on random GLV scans, one on range scans) stay within
-        PREFILTER_MAX_SURVIVORS (the drain applies the full regex to
-        survivors); else None, the DFA route."""
+        per position on random GLV scans, one on range scans and on P2TR)
+        stay within PREFILTER_MAX_SURVIVORS (the drain applies the full regex
+        to survivors); else None, the DFA route."""
         ivs = pattern.match_intervals(self.fmt)
         if ivs is not None:
             return ivs
@@ -105,16 +110,20 @@ class DeviceScanner:
         ivs = self._plan_intervals(pattern, config)
         if ivs is not None:
             n_slots = pipeline.interval_slot_count(len(ivs))
-            lo_np, hi_np = pipeline.intervals_to_words(ivs, n_slots=n_slots)
+            lo_np, hi_np = pipeline.intervals_to_words(
+                ivs, n_words=pipeline.INTERVAL_WORDS[self.fmt],
+                n_slots=n_slots)
             lo, hi = u256.as_i32(lo_np).to(dev), u256.as_i32(hi_np).to(dev)
 
             def step(bx, by, rem):
                 return fused.fused_range_scan_step(
-                    self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv)
+                    self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv,
+                    self.wt)
 
             def mask_step(bx, by, rem):
                 return fused.fused_range_mask_step(
-                    self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv)
+                    self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv,
+                    self.wt)
 
             return step, mask_step, pattern.match_intervals(self.fmt) is not None
         dfa = pattern.device_dfa(self.fmt)
@@ -124,12 +133,13 @@ class DeviceScanner:
 
         def step(bx, by, rem):
             return fused.fused_scan_step(self.fmt, bx, by, self.tx, self.ty,
-                                         table, accept, start, rem, glv)
+                                         table, accept, start, rem, glv,
+                                         self.wt)
 
         def mask_step(bx, by, rem):
             return fused.fused_scan_mask_step(
                 self.fmt, bx, by, self.tx, self.ty, table, accept, start, rem,
-                glv)
+                glv, self.wt)
 
         return step, mask_step, True
 
@@ -311,7 +321,7 @@ def scan_with_progress(pattern: Pattern, config: ScanConfig,
                        stop_flag: Optional[StopFlag] = None,
                        device="cuda") -> ScanResult:
     """Scan on ``device`` ("cuda", or "cpu" for the plain versions), or with
-    ``vgen_tpu``'s native CPU scanner when ``config.use_device`` is False."""
+    the port's native CPU scanner when ``config.use_device`` is False."""
     if not config.use_device:
         return _scan_cpu(pattern, config, progress_callback, stop_flag)
     scanner = DeviceScanner(config.format,
