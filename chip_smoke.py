@@ -59,11 +59,34 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 21. timed benchmark_device runs (about 5 s each) on P2TR patterns that
     never match: an interval pattern through kernels A, F, G and H, and a
     suffix through A, F, G and I.
+22. kernels B, C, D and E for P2SH-P2WPKH, uncompressed P2PKH and
+    Ethereum (csrc/kernels.cu) against their plain versions on CPU: real
+    tables and base points, K = 2, B = 8192, one window based below B;
+    interval patterns ^3A, ^1A, ^0x1, ^0xab and DFA patterns c[a4]t, Ab$
+    and a.{8}$; masks and packed rows bit-equal, matching lanes > 0;
+23. ``generate -f <fmt> -c 3`` at full width for each of the three formats
+    on an interval pattern (^3Ab, ^1Ab, ^0xabc: kernels A and B, not E) and
+    a DFA pattern (Cat$, Cat$, Abc$: A and E, not B), oracle-confirmed; and
+    ``generate -f ethereum -i -p ^0xabcd -c 3``, whose case-insensitive
+    interval route is exact (^0xabc's is a prefilter);
+24. full-width range scans of the three formats: a DFA range of two
+    windows (1048576 keys, -c 0) through kernels A and D whose match set
+    equals the native scanner's, and an interval range (-c 1: ^0xab, ^3Ab,
+    ^1Ab) through A and C that returns the native scanner's lowest key;
+25. kernels B, C, D and E of the three formats and their plain versions
+    timed at K = 8, B = 524288 with CUDA events, outputs compared again,
+    matching lanes > 0;
+26. timed benchmark_device runs (about 5 s each) of the three formats on a
+    never-matching interval pattern and a never-matching DFA suffix.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Tolerance everywhere: exact (the values are integers).  The line
 before the last is the kernels' JSON summary, the last line the device
 JSON.
+
+The JSON line names the instances of kernels B to E for the three formats
+of phases 22-26 ``<kernel>[<format>]``; their launches are those of the
+format's path run (phases 23 and 24).
 
 Each kernel's ``bound_ms`` is the larger of the time its 32-bit integer
 instructions need (the model below, over the SMs at the maximum SM clock
@@ -127,13 +150,23 @@ def cuda_ms(fn, reps, warm=True):
 # - field squaring: 36 distinct partial products, the 28 cross products
 #   doubled by a 16-op shift, then the same fold and subtract;
 # - modular add or subtract: 8 carrying adds and 8 for the fix-up;
-# - SHA-256 compression: 64 rounds of 14 (per sigma three funnel-shift
-#   rotates and one three-input XOR, one LOP3 each for Ch and Maj, four
-#   three-input adds) and 48 schedule words of 10, less 60 where the
-#   initial state and the zero padding words are constants;
-# - RIPEMD-160: 160 steps of 6 (a LOP3, two rotates, three adds), one add
-#   fewer in the 80 steps on constant padding words, 10 for the final
-#   combination and 8 byte swaps;
+# - SHA-256 compression (``sha256_ops``): 64 rounds of 14 (per sigma three
+#   funnel-shift rotates and one three-input XOR, one LOP3 each for Ch and
+#   Maj, four three-input adds) and 48 schedule words of 10, counted term
+#   by term: a sigma of a constant word costs nothing, constant terms of a
+#   sum fold into one, a schedule word of constant terms is a constant,
+#   and so are the Ch, Maj and sigmas of a constant initial state;
+# - RIPEMD-160 of a 32-byte digest: 160 steps of 6 (a LOP3, two rotates,
+#   three adds), one add fewer in the 80 steps on constant padding words,
+#   10 for the final combination and 8 byte swaps;
+# - Keccak-f[1600] (``keccak_ops``): 24 rounds on 64-bit lanes as 32-bit
+#   halves: theta's five column parities (two three-input XORs per half,
+#   20), five rotates by one (two funnel shifts, 10) and the 25 lanes' XOR
+#   with two terms (one LOP3 per half, 50); rho's 24 rotates (48); chi (one
+#   LOP3 per half, 50); iota (2).  The first round's parities skip the zero
+#   lanes of the absorbed block, whose theta results a column shares; the
+#   last round computes only the output's halves and the five lanes that
+#   chi reads for them;
 # - inversion: 255 squarings and 15 multiplies;
 # - a DFA step: the index's multiply-add and the load;
 # - an interval compare of W words against S slots: a subtract with borrow
@@ -141,10 +174,90 @@ def cuda_ms(fn, reps, warm=True):
 FE_MUL = np.array([64 + 8, 2 * 64 + 2 * 8 + 8 + 16])
 FE_SQR = np.array([36 + 8, 2 * 36 + 16 + 2 * 8 + 8 + 16])
 FE_ADD = np.array([0, 16])
-SHA256 = np.array([0, 64 * 14 + 48 * 10 - 60])
+
+
+def _adds(operands):
+    """Three-input adds (or XORs) that sum ``operands`` values."""
+    return operands // 2
+
+
+def _sum(variables, constant):
+    return _adds(variables + constant) if variables else 0
+
+
+def sha256_ops(const_words, const_state=True, shared=0):
+    """(multiplies, instructions) of one SHA-256 compression whose message
+    words ``const_words`` (padding, length) and, with ``const_state``, whose
+    initial state are constants.  The first ``shared`` rounds, and the
+    sigma0 of their words, are those of a compression already counted
+    (the same leading words under the same state)."""
+    var = [j not in const_words for j in range(16)]
+    n = 0
+    for t in range(16, 64):
+        a, b, c, d = var[t - 2], var[t - 7], var[t - 15], var[t - 16]
+        terms = a + b + c + d
+        n += 4 * a + 4 * (c and t - 15 >= shared) + _sum(terms, terms < 4)
+        var.append(terms > 0)
+    st = [not const_state] * 8
+    for t in range(64):
+        a, b, c, d, e, f, g, h = st
+        ch, maj = e or f or g, a or b or c
+        t1 = h + e + ch + var[t]
+        e2, a2 = d + (t1 > 0), (t1 > 0) + a + maj
+        if t >= shared:
+            n += (4 * e + ch + 4 * a + maj + _sum(t1, 1) + _sum(e2, e2 < 2)
+                  + _sum(a2, a2 < 3))
+        st = [a2 > 0, a, b, c, e2 > 0, e, f, g]
+    return np.array([0, n])
+
+
+def sha256_msg(nbytes):
+    """One compression of an ``nbytes``-byte message (< 56) from the
+    standard initial state: the words past its data are constants."""
+    return sha256_ops(range(-(-nbytes // 4), 16))
+
+
+def keccak_ops(var_lanes, const_lanes, out_halves, out_lane0):
+    """(multiplies, instructions) of Keccak-f[1600] on a block whose lanes
+    ``var_lanes`` are data and ``const_lanes`` nonzero constants (padding;
+    the rest zero), when the caller reads ``out_halves`` 32-bit halves of
+    the first plane, lane 0 among them if ``out_lane0`` (its iota)."""
+    rnd = 20 + 10 + 50 + 48 + 50 + 2
+    first = 10 + 48 + 50 + 2
+    for x in range(5):
+        col = [x + 5 * y for y in range(5)]
+        nv = sum(lane in var_lanes for lane in col)
+        nc = sum(lane in const_lanes for lane in col)
+        first += 2 * _adds(nv + (nc > 0)) + 2 * (nv + nc + (nv + nc < 5))
+    last = 20 + 10 + 10 + 8 + out_halves + 2 * out_lane0
+    return np.array([0, first + 22 * rnd + last])
+
+
+# the 33-byte compressed key's hash160: its compression, then RIPEMD-160
+SHA256 = sha256_msg(33)
 RIPEMD160 = np.array([0, 160 * 6 - 80 + 10 + 8])
 HASH160 = SHA256 + RIPEMD160
 INV = 255 * FE_SQR + 15 * FE_MUL
+# hash160 of 04 || x || y: a 64-byte block, then one of y's last byte and
+# padding from the first block's state; the P2SH-P2WPKH redeem script
+# 00 14 || hash160 (22 bytes) through SHA-256 and RIPEMD-160
+SHA256_X65 = sha256_ops(()) + sha256_ops(range(1, 16), const_state=False)
+SCRIPT_HASH = sha256_msg(22) + RIPEMD160
+# The first block of 04 || x || y holds x's words 0-7 only, so the key of
+# -y shares the first eight rounds with the key of +y
+SHA256_X65_PAIR = (SHA256_X65 + sha256_ops((), shared=8)
+                   + sha256_ops(range(1, 16), const_state=False))
+# keccak256(x || y): lanes 0-7 data, the pads in lanes 8 and 16; the
+# account is the high half of lane 1 and lanes 2, 3
+KECCAK = keccak_ops(range(8), (8, 16), 5, False)
+# what the key of -y shares with that of +y: the first round's parity of
+# column 3 (x's lane 3 and the pad), one three-input XOR per half
+KECCAK_X_ONLY = np.array([0, 2])
+# EIP-55's keccak256 of 40 hex bytes: lanes 0-4 data, pads in lanes 5 and
+# 16; the 40 checksum nibbles are lanes 0, 1 and the low half of lane 2
+KECCAK_EIP55 = keccak_ops(range(5), (5, 16), 5, True)
+# Base58Check's checksum: SHA-256 of the 21-byte payload, then of its digest
+B58_CHECKSUM = sha256_msg(21) + sha256_msg(32)
 DFA_STEP = np.array([1, 2])
 MULS_PER_SM_CLOCK, INSTRUCTIONS_PER_SM_CLOCK = 64, 128
 HBM_BYTES_PER_S = 3.35e12
@@ -290,7 +403,8 @@ def main():
         require(ms >= bound_ms, f"{kname}: {ms:.3f} ms beats its bound "
                 f"{bound_ms:.3f} ms: the model counts more than the work needs")
         kernels.append({
-            "name": kname, "route": "cuda", "source": sources[kname],
+            "name": kname, "route": "cuda",
+            "source": sources[kname.split("[")[0]],  # <kernel>[<format>]
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(err, err_small), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -305,8 +419,9 @@ def main():
     build.load()
     log(f"[2] kernels built+loaded in {time.time() - t0:.1f} s: "
         f"{', '.join(build.library_path(u).name for u in build.UNITS)}")
-    for line in build.build_log().splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
+    for line in build.build_log().splitlines():  # each unit's nvcc and seconds
+        if line.startswith("# ") or any(
+                k in line for k in ("entry function", "registers", "spill")):
             log(f"    {line.strip()}")
 
     # -- 3. kernel A vs plain --------------------------------------------
@@ -351,11 +466,11 @@ def main():
     rem = torch.tensor([B, B - 100], dtype=torch.int32)
     cpu_args = (bxs, bys, txs, tys)
     inv_c = fused.batch_inverse_dx(bxs, txs)
-    mask_c = fused.range_glv_match(*cpu_args, inv_c, lo, hi, rem)
+    mask_c = fused.range_glv_match(fmt, *cpu_args, inv_c, lo, hi, rem)
     row_c = fused.pack_tail(mask_c, rem, fused.GLV_KEYS)
     d = [t.to(dev) for t in (*cpu_args, lo, hi, rem)]
     inv_d = fused.batch_inverse_dx(d[0], d[2])
-    mask_d = fused.range_glv_match(*d[:4], inv_d, d[4], d[5], d[6])
+    mask_d = fused.range_glv_match(fmt, *d[:4], inv_d, d[4], d[5], d[6])
     row_d = fused.pack_tail(mask_d, d[6], fused.GLV_KEYS)
     torch.cuda.synchronize()
     err_b = max_abs_err(mask_d.cpu(), mask_c)
@@ -387,7 +502,8 @@ def main():
     remf = torch.full((K,), B, dtype=torch.int32, device=dev)
     lof, hif = lo.to(dev), hi.to(dev)
     inv_f = fused.batch_inverse_dx(bxf, txf)
-    mask_f = fused.range_glv_match(bxf, byf, txf, tyf, inv_f, lof, hif, remf)
+    mask_f = fused.range_glv_match(fmt, bxf, byf, txf, tyf, inv_f, lof, hif,
+                                   remf)
     N = K * B
     M = fused._chain_len(N)
     S = lo.shape[0]
@@ -403,8 +519,10 @@ def main():
          inv_f, "vgen_tpu/ops/pallas_fused.py:502", err_a,
          chain_ops, 32 * K + 32 * B + 32 * N),
         ("range_glv_match",
-         lambda: fused.range_glv_match(bxf, byf, txf, tyf, inv_f, lof, hif, remf),
-         lambda: fused.range_glv_match_plain(bxf, byf, txf, tyf, inv_f, lof, hif, remf),
+         lambda: fused.range_glv_match(fmt, bxf, byf, txf, tyf, inv_f, lof,
+                                       hif, remf),
+         lambda: fused.range_glv_match_plain(fmt, bxf, byf, txf, tyf, inv_f,
+                                             lof, hif, remf),
          mask_f, "vgen_tpu/ops/pallas_fused.py:1271", err_b,
          N * (finish_x_glv + 6 * (HASH160 + compare(S, 5))),
          lane_in + 40 * S + 4 * N),
@@ -435,8 +553,8 @@ def main():
     cpu8 = (bx8, by8, txs, tys, inv8)
     dev8 = tuple(t.to(dev) for t in cpu8)
     rem8_d = rem8.to(dev)
-    mask_c = fused.range_match(*cpu8, lo8, hi8, rem8)
-    mask_d = fused.range_match(*dev8, lo8.to(dev), hi8.to(dev), rem8_d)
+    mask_c = fused.range_match(fmt, *cpu8, lo8, hi8, rem8)
+    mask_d = fused.range_match(fmt, *dev8, lo8.to(dev), hi8.to(dev), rem8_d)
     rows_d = fused.pack_tail(mask_d, rem8_d, 1)
     torch.cuda.synchronize()
     err_c = max_abs_err(mask_d.cpu(), mask_c)
@@ -605,15 +723,15 @@ def main():
     tab_e, acc_e, st_e = (t.to(dev) if torch.is_tensor(t) else t
                           for t in dfa_tensors(Pattern("Cat$"), fmt))
     lanes_f = (bxf, byf, txf, tyf, inv_f)
-    # Base58Check of a P2PKH address: two more SHA-256 compressions, 49
+    # Base58Check of a P2PKH address: the checksum's two compressions, 49
     # 64-bit divisions by 58^5 (8 each), 35 digit splits (5) and the
     # 35-step walk
-    b58_walk = 2 * SHA256 + np.array([0, 49 * 8 + 35 * 5]) + 35 * DFA_STEP
+    b58_walk = B58_CHECKSUM + np.array([0, 49 * 8 + 35 * 5]) + 35 * DFA_STEP
     finish_xy = 2 * FE_MUL + FE_SQR + 6 * FE_ADD
     for kname, run, plain, replaces, path, err_small, ops, nbytes in (
         ("range_match",
-         lambda: fused.range_match(*lanes_f, lof, hif, remf),
-         lambda: fused.range_match_plain(*lanes_f, lof, hif, remf),
+         lambda: fused.range_match(fmt, *lanes_f, lof, hif, remf),
+         lambda: fused.range_match_plain(fmt, *lanes_f, lof, hif, remf),
          "vgen_tpu/ops/pallas_fused.py:1243", "range interval", err_c,
          N * (finish_xy + HASH160 + compare(S, 5)), lane_in + 40 * S + 4 * N),
         ("dfa_match",
@@ -801,9 +919,10 @@ def main():
         plain_f = plain_1
         ref_plain = (X_f[:, :B], Z_f[:, :B], ok_f[:B])
         plain_shape = f"K=1 B={B} (K=8 estimated at {plain_k8_s:.0f} s)"
-    # per lane: the even-Y negation, the tweak's compression and t < n;
-    # per add (8M + 3S): six subtractions and 2V as an addition
-    tweak_ops = FE_ADD + SHA256 + np.array([0, 16])
+    # per lane: the even-Y negation, the tweak's compression of x from the
+    # tag's midstate and t < n; per add (8M + 3S): six subtractions and 2V
+    # as an addition
+    tweak_ops = FE_ADD + sha256_ops(range(8, 16)) + np.array([0, 16])
     add_ops = 8 * FE_MUL + 3 * FE_SQR + 7 * FE_ADD
     ladder_ops = N * (finish_xy + tweak_ops) + adds * add_ops
     finish_ops = N * (FE_MUL + FE_SQR)
@@ -887,6 +1006,225 @@ def main():
             f"position): {stats['keys_per_sec']:,.0f} keys/s "
             f"({stats['operations']:,} keys in {stats['elapsed']:.2f} s) on "
             f"{smi}")
+
+    # -- 22. kernels B, C, D, E of the other formats vs plain ----------------
+    P2SH, UNC, ETH = (AddressFormat.P2SH_P2WPKH,
+                      AddressFormat.P2PKH_UNCOMPRESSED, AddressFormat.ETHEREUM)
+    new_formats = {
+        # format: (interval patterns, DFA patterns); a.{8}$ has more than 256
+        # DFA states
+        P2SH: (("^3A",), ("c[a4]t", "a.{8}$")),
+        UNC: (("^1A",), ("c[a4]t", "a.{8}$")),
+        ETH: (("^0x1", "^0xab"), ("Ab$", "a.{8}$")),
+    }
+    K, B = 2, 8192
+    bases22 = [1 + B // 2, 0x5EED5EED5EED]  # window 0: doubling lane at B/2
+    bx22, by22 = base_points(bases22)
+    rem22 = torch.tensor([B, B - 100], dtype=torch.int32)
+    inv22 = fused.batch_inverse_dx(bx22, txs)
+    cpu22 = (bx22, by22, txs, tys, inv22)
+    dev22 = tuple(t.to(dev) for t in cpu22)
+    rem22_d = rem22.to(dev)
+    err22 = {}
+
+    def on_dev(args):
+        return tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+
+    for fmt22, (iv_srcs, dfa_srcs) in new_formats.items():
+        ivs = [(s_, lo_hi(Pattern(s_), fmt22)) for s_ in iv_srcs]
+        dfas = [(s_, dfa_tensors(Pattern(s_), fmt22)) for s_ in dfa_srcs]
+        for kname, mult, cases in (("range_match", 1, ivs),
+                                   ("range_glv_match", fused.GLV_KEYS, ivs),
+                                   ("dfa_match", 1, dfas),
+                                   ("glv_dfa_match", fused.GLV_KEYS, dfas)):
+            kern = wrappers[kname]
+            for src, margs in cases:
+                t0 = time.time()
+                m_c = kern(fmt22, *cpu22, *margs, rem22)
+                plain_s = time.time() - t0
+                m_d = kern(fmt22, *dev22, *on_dev(margs), rem22_d)
+                r_d = fused.pack_tail(m_d, rem22_d, mult)
+                torch.cuda.synchronize()
+                what = f"{kname} {fmt22.value} {src}"
+                err = max_abs_err(m_d.cpu(), m_c)
+                err22[kname, fmt22] = max(err22.get((kname, fmt22), 0), err)
+                require(err == 0, f"{what}: differs from its plain version "
+                        f"({err})")
+                require(torch.equal(r_d.cpu(), fused.pack_tail(m_c, rem22, mult)),
+                        f"{what}: packed rows differ")
+                hits = int((m_c > 0).sum())
+                require(hits > 0, f"{what}: no matching lane")
+                require(int(m_c[0, bases22[0] - 1]) == 0
+                        and int(m_c[1, B - 100:].abs().sum()) == 0,
+                        f"{what}: a dead or out-of-window lane is set")
+                log(f"[22] {what} == plain on K={K} B={B}: {hits} matching "
+                    f"lanes (plain on CPU {plain_s:.1f} s)")
+
+    # -- 23. random scans of the other formats at full width -----------------
+    for fmt23, iv_src, dfa_src in ((P2SH, "^3Ab", "Cat$"), (UNC, "^1Ab", "Cat$"),
+                                   (ETH, "^0xabc", "Abc$")):
+        for route, src, on, off in (
+                ("interval", iv_src, "range_glv_match", "glv_dfa_match"),
+                ("dfa", dfa_src, "glv_dfa_match", "range_glv_match")):
+            argv = ["generate", "-f", fmt23.value, "-p", src, "-c", "3"]
+            reset_launches()
+            rows, _, secs = run_cli(argv)
+            got = path_launches[f"random {route} {fmt23.value}"] = read_launches()
+            require(len(rows) == 3, f"{argv}: expected 3 matches, got {len(rows)}")
+            confirm(rows, fmt23, Pattern(src))
+            require(got["batch_inverse_dx"] > 0 and got[on] > 0 and got[off] == 0,
+                    f"{argv}: launches {got}, expected A, {on} and not {off}")
+            log(f"[23] {' '.join(argv)} (B=524288, k_sub=8) in {secs:.1f} s: "
+                f"{[r['address'] for r in rows]} oracle-confirmed; launches {got}")
+    # case-insensitive: the Ethereum intervals are exact, so hits count as
+    # matches; a case-sensitive letter prefix (^0xabc above) is a prefilter
+    require(Pattern("^0xabcd", True).exact_match_intervals(ETH) is not None
+            and Pattern("^0xabc").exact_match_intervals(ETH) is None,
+            "the Ethereum interval route's exactness rule")
+    argv = ["generate", "-f", "ethereum", "-i", "-p", "^0xabcd", "-c", "3"]
+    reset_launches()
+    rows, _, secs = run_cli(argv)
+    got = read_launches()
+    require(len(rows) == 3, f"{argv}: expected 3 matches, got {len(rows)}")
+    confirm(rows, ETH, Pattern("^0xabcd", True))
+    require(got["batch_inverse_dx"] > 0 and got["range_glv_match"] > 0
+            and got["glv_dfa_match"] == 0, f"{argv}: launches {got}")
+    log(f"[23] {' '.join(argv)} (exact interval route) in {secs:.1f} s: "
+        f"{[r['address'] for r in rows]} oracle-confirmed; launches {got}")
+
+    # -- 24. full-width range scans of the other formats vs native ------------
+    start24 = 0xC0FFEE000000
+    end24 = start24 + 2 * sc.DEFAULT_DEVICE_BATCH - 1
+    for fmt24, src in ((P2SH, "[Cc]at"), (UNC, "[Cc]at"),
+                       (ETH, "[Dd][Ee][Aa][Dd]")):
+        reset_launches()
+        rows, _, secs = run_cli(["range", "-f", fmt24.value, "-r",
+                                 f"{start24:x}:{end24:x}", "-p", src, "-c", "0"])
+        got = path_launches[f"range dfa {fmt24.value}"] = read_launches()
+        keys24 = sorted(confirm(rows, fmt24, Pattern(src)))
+        t0 = time.time()
+        ref24 = _scan_cpu(Pattern(src), ScanConfig(
+            format=fmt24, start=start24, end=end24, count=0, use_device=False),
+            None, None)
+        native_s = time.time() - t0
+        want24 = sorted(int(m.hex, 16) for m in ref24.matches)
+        require(keys24 == want24 and len(keys24) > 2 * pipeline.TOP_K,
+                f"{fmt24.value} DFA range: {len(keys24)} matches, native "
+                f"{len(want24)}")
+        require(rows[0]["operations"] == ref24.operations == end24 - start24 + 1,
+                f"{fmt24.value} DFA range: operations {rows[0]['operations']}")
+        require(got["batch_inverse_dx"] > 0 and got["dfa_match"] > 0
+                and got["range_match"] == 0 and got["glv_dfa_match"] == 0,
+                f"{fmt24.value} DFA range: launches {got}, expected A and D")
+        log(f"[24] range -f {fmt24.value} {start24:x}:{end24:x} -p {src} -c 0: "
+            f"{len(keys24)} matches in {secs:.1f} s == native scanner's "
+            f"({native_s:.1f} s); launches {got}")
+    for fmt24, src in ((ETH, "^0xab"), (P2SH, "^3Ab"), (UNC, "^1Ab")):
+        reset_launches()
+        rows, _, secs = run_cli(["range", "-f", fmt24.value, "-r",
+                                 f"{start24:x}:{end24:x}", "-p", src, "-c", "1"])
+        got = path_launches[f"range interval {fmt24.value}"] = read_launches()
+        ref24 = _scan_cpu(Pattern(src), ScanConfig(
+            format=fmt24, start=start24, end=end24, count=1, use_device=False),
+            None, None)
+        want24 = [int(m.hex, 16) for m in ref24.matches]
+        require(confirm(rows, fmt24, Pattern(src)) == want24 and want24,
+                f"{fmt24.value} {src} -c 1: {rows}, native {want24}")
+        require(got["batch_inverse_dx"] > 0 and got["range_match"] > 0
+                and got["dfa_match"] == 0,
+                f"{fmt24.value} interval range: launches {got}, expected A, C")
+        log(f"[24] range -f {fmt24.value} -p {src} -c 1 over {start24:x}:"
+            f"{end24:x}: {hex(want24[0])}, the native scanner's lowest, in "
+            f"{secs:.1f} s; launches {got}")
+
+    # -- 25. kernels B, C, D, E of the other formats timed at the main shape --
+    K, B = sc.DEFAULT_K_SUB, sc.DEFAULT_DEVICE_BATCH
+    N = K * B
+    shape = f"K={K} B={B}"
+    lanes_f = (bxf, byf, txf, tyf, inv_f)
+    # per key: the value's hashes; per lane of B and E: those of the six
+    # variants (uncompressed: three pairs of +y and -y keys); for the DFA
+    # the symbols and the walk (EIP-55: the nibbles' ASCII (4 each), the
+    # second Keccak-f, the casing (3 each) and a 41-step walk)
+    value_ops = {P2SH: HASH160 + SCRIPT_HASH, UNC: SHA256_X65 + RIPEMD160,
+                 ETH: KECCAK}
+    glv_value_ops = {P2SH: 6 * value_ops[P2SH],
+                     UNC: 3 * (SHA256_X65_PAIR + 2 * RIPEMD160),
+                     ETH: 6 * KECCAK - 3 * KECCAK_X_ONLY}
+    eip55_walk = KECCAK_EIP55 + np.array([0, 40 * (4 + 3)]) + 41 * DFA_STEP
+    # the full finish, beta x, beta^2 x and one negation of y
+    finish_xy_glv = finish_xy + 2 * FE_MUL + FE_ADD
+    for fmt25, iv_src, d_src, e_src in (
+            (P2SH, "^3A", "[Cc]at", "Cat$"), (UNC, "^1A", "[Cc]at", "Cat$"),
+            (ETH, "^0x1", "[Dd][Ee][Aa][Dd]", "Abc$")):
+        lo25, hi25 = (t.to(dev) for t in lo_hi(Pattern(iv_src), fmt25))
+        S25 = lo25.shape[0]
+        dfa_d = on_dev(dfa_tensors(Pattern(d_src), fmt25))
+        dfa_e = on_dev(dfa_tensors(Pattern(e_src), fmt25))
+        value, glv_value = value_ops[fmt25], glv_value_ops[fmt25]
+        walk = eip55_walk if fmt25 == ETH else b58_walk
+        glv_finish = (finish_xy_glv if fmt25 in pipeline.GLV_EXACT_Y
+                      else finish_x_glv)
+        dfa_bytes = [4 * (d[0].numel() + d[1].numel()) for d in (dfa_d, dfa_e)]
+        iv_args, f = (lo25, hi25, remf), fmt25
+        for kname, margs, path, replaces, ops, nbytes in (
+            ("range_glv_match", iv_args, f"random interval {f.value}",
+             "vgen_tpu/ops/pallas_fused.py:1271",
+             N * (glv_finish + glv_value + 6 * compare(S25, 5)),
+             lane_in + 40 * S25 + 4 * N),
+            ("range_match", iv_args, f"range interval {f.value}",
+             "vgen_tpu/ops/pallas_fused.py:1243",
+             N * (finish_xy + value + compare(S25, 5)),
+             lane_in + 40 * S25 + 4 * N),
+            ("dfa_match", dfa_d + (remf,), f"range dfa {f.value}",
+             "vgen_tpu/ops/pallas_fused.py:165",
+             N * (finish_xy + value + walk), lane_in + dfa_bytes[0] + 4 * N),
+            ("glv_dfa_match", dfa_e + (remf,), f"random dfa {f.value}",
+             "vgen_tpu/ops/pallas_fused.py:190",
+             N * (glv_finish + glv_value + 6 * walk),
+             lane_in + dfa_bytes[1] + 4 * N),
+        ):
+            kern = wrappers[kname]
+            plain_fn = getattr(fused, f"{kname}_plain")
+
+            def run(kern=kern, margs=margs):
+                return kern(f, *lanes_f, *margs)
+
+            def plain(plain_fn=plain_fn, margs=margs):
+                return plain_fn(f, *lanes_f, *margs)
+
+            ref = run()
+            hits = int((ref > 0).sum())
+            require(hits > 0, f"{kname} {f.value} at {shape}: no matching lane")
+            iname = f"{kname}[{f.value}]"
+            ms, plain_ms, bms, bby = time_kernel(
+                iname, run, plain, ref, replaces, path_launches[path][kname],
+                err22[kname, f], shape, ops, nbytes, reps=5)
+            log(f"[25] {iname} at {shape}: kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({bby}), bit-equal, "
+                f"{hits} matching lanes ({smi})")
+            del ref
+        torch.cuda.empty_cache()
+
+    # -- 26. timed scans of the other formats, both routes --------------------
+    for fmt26, src, on, off in (
+            (P2SH, "^3BenchNeverMatches", "range_glv_match", "glv_dfa_match"),
+            (P2SH, "BenchNeverMatches$", "glv_dfa_match", "range_glv_match"),
+            (UNC, "^1BenchNeverMatches", "range_glv_match", "glv_dfa_match"),
+            (UNC, "BenchNeverMatches$", "glv_dfa_match", "range_glv_match"),
+            (ETH, "^0x" + "0" * 20, "range_glv_match", "glv_dfa_match"),
+            (ETH, "deadbeefcafe0123$", "glv_dfa_match", "range_glv_match")):
+        reset_launches()
+        stats = sc.benchmark_device(fmt26, src, min_seconds=5.0,
+                                    warmup_batches=1)
+        got = read_launches()
+        route = "interval" if on == "range_glv_match" else "DFA"
+        require(stats["keys_per_sec"] > 0, f"{fmt26.value} {route}: no keys")
+        require(got[on] > 0 and got[off] == 0,
+                f"{fmt26.value} {route} benchmark: launches {got}")
+        log(f"[26] benchmark_device {src} ({fmt26.value} {route}, GLV): "
+            f"{stats['keys_per_sec']:,.0f} keys/s ({stats['operations']:,} "
+            f"keys in {stats['elapsed']:.2f} s) on {smi}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """The CUDA kernels' per-thread code, compiled for the host: the headers in
 ``vgen_tpu_torch/csrc`` also build as plain C++, so the bodies of kernels B
-to E (``scan_lanes.cuh``) and the address encoders (``encode.cuh``) run
-here through a small ctypes harness, one loop iteration per lane, and are
-held against the plain PyTorch versions (which the other test files hold
-against the JAX reference).  Exact: every value is an integer.  Needs a
-host C++ compiler (``g++``), as the native scanner does."""
+to E (``scan_lanes.cuh``) for all five hash formats, the hashes
+(``sha256.cuh``, ``keccak.cuh``) and the address encoders (``encode.cuh``)
+run here through a small ctypes harness, one loop iteration per lane, and
+are held against the plain PyTorch versions (which the other test files
+hold against the JAX reference).  Exact: every value is an integer.  Needs
+a host C++ compiler (``g++``), as the native scanner does."""
 
 import ctypes
 import shutil
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgen_tpu_torch.crypto import secp256k1 as ec
 from vgen_tpu_torch.crypto.address import AddressFormat
 from vgen_tpu_torch.csrc import build
@@ -100,47 +102,89 @@ void h_p2tr_finish(int dfa_route, const uint32_t* X, const uint32_t* Z,
         ? vg::p2tr_dfa_lane(X, Z, zi, ok, dfa, rem, B, N, e)
         : vg::p2tr_range_lane(X, Z, zi, ok, lo, hi, n_slots, rem, B, N, e);
 }
-int h_base58(const uint32_t* h, uint8_t* syms) {
-  return vg::base58check_symbols(syms, 0u, h);
+int h_base58(uint32_t version, const uint32_t* h, uint8_t* syms) {
+  return vg::base58check_symbols(syms, version, h);
 }
 void h_bech32(const uint32_t* h, uint8_t* syms) {
   vg::bech32_p2wpkh_symbols(syms, h);
 }
-void h_interval(int glv, const uint32_t* bx, const uint32_t* by,
+// per value e < n of (n, 5) words: the EIP-55 symbols and the script hash
+void h_eip55(const uint32_t* h, uint8_t* syms, int n) {
+  for (long e = 0; e < n; e++) vg::eip55_symbols(syms + 40 * e, h + 5 * e);
+}
+void h_script_hash(const uint32_t* h, uint32_t* out, int n) {
+  for (long e = 0; e < n; e++) vg::script_hash(out + 5 * e, h + 5 * e);
+}
+// Keccak-f[1600] of n (n, 25) lane states in place
+void h_keccak(uint64_t* a, int n) {
+  for (long e = 0; e < n; e++) vg::keccak_f1600(a + 25 * e);
+}
+// per point e < n of (8, n) limb-major x, y: SHA-256 of 04 || x || y (8
+// words) and the Ethereum account (5 words), (n, 8) and (n, 5)
+void h_xy(const uint32_t* x, const uint32_t* y, uint32_t* st, uint32_t* acct,
+          int n) {
+  for (long e = 0; e < n; e++) {
+    uint32_t a[8], b[8];
+    vg::fe_load(a, x, n, e);
+    vg::fe_load(b, y, n, e);
+    vg::sha256_x65(st + 8 * e, a, b);
+    vg::eth_account(acct + 5 * e, a, b);
+  }
+}
+}  // extern "C"
+template <int kFmt>
+void interval_lanes(int glv, const uint32_t* bx, const uint32_t* by,
+                    const uint32_t* tx, const uint32_t* ty, const uint32_t* inv,
+                    const uint32_t* lo, const uint32_t* hi, int n_slots,
+                    const int32_t* rem, int32_t* out, int K, int B) {
+  const long N = (long)K * B;
+  for (long e = 0; e < N; e++)
+    out[e] = glv ? vg::range_glv_lane<kFmt>(bx, by, tx, ty, inv, lo, hi,
+                                            n_slots, rem, B, N, e)
+                 : vg::range_lane<kFmt>(bx, by, tx, ty, inv, lo, hi, n_slots,
+                                        rem, B, N, e);
+}
+template <int kFmt>
+void dfa_lanes(int glv, const uint32_t* bx, const uint32_t* by,
+               const uint32_t* tx, const uint32_t* ty, const uint32_t* inv,
+               const int32_t* table, const int32_t* accept, int width,
+               int start, const int32_t* rem, int32_t* out, int K, int B) {
+  const long N = (long)K * B;
+  const vg::Dfa dfa{table, accept, width, start};
+  for (long e = 0; e < N; e++)
+    out[e] = glv ? vg::glv_dfa_lane<kFmt>(bx, by, tx, ty, inv, dfa, rem, B, N,
+                                          e)
+                 : vg::dfa_lane<kFmt>(bx, by, tx, ty, inv, dfa, rem, B, N, e);
+}
+extern "C" {
+#define VG_FMT_SWITCH(fn, ...)                                              \
+  switch (fmt) {                                                            \
+    case vg::kFmtP2PKH: fn<vg::kFmtP2PKH>(__VA_ARGS__); break;              \
+    case vg::kFmtP2WPKH: fn<vg::kFmtP2WPKH>(__VA_ARGS__); break;            \
+    case vg::kFmtP2SHP2WPKH: fn<vg::kFmtP2SHP2WPKH>(__VA_ARGS__); break;    \
+    case vg::kFmtP2PKHUncompressed:                                         \
+      fn<vg::kFmtP2PKHUncompressed>(__VA_ARGS__); break;                    \
+    case vg::kFmtEthereum: fn<vg::kFmtEthereum>(__VA_ARGS__); break;        \
+  }
+void h_interval(int fmt, int glv, const uint32_t* bx, const uint32_t* by,
                 const uint32_t* tx, const uint32_t* ty, const uint32_t* inv,
                 const uint32_t* lo, const uint32_t* hi, int n_slots,
                 const int32_t* rem, int32_t* out, int K, int B) {
-  const long N = (long)K * B;
-  for (long e = 0; e < N; e++)
-    out[e] = glv ? vg::range_glv_lane(bx, by, tx, ty, inv, lo, hi, n_slots,
-                                      rem, B, N, e)
-                 : vg::range_lane(bx, by, tx, ty, inv, lo, hi, n_slots, rem,
-                                  B, N, e);
+  VG_FMT_SWITCH(interval_lanes, glv, bx, by, tx, ty, inv, lo, hi, n_slots,
+                rem, out, K, B)
 }
 void h_dfa(int fmt, int glv, const uint32_t* bx, const uint32_t* by,
            const uint32_t* tx, const uint32_t* ty, const uint32_t* inv,
            const int32_t* table, const int32_t* accept, int width, int start,
            const int32_t* rem, int32_t* out, int K, int B) {
-  const long N = (long)K * B;
-  const vg::Dfa dfa{table, accept, width, start};
-  for (long e = 0; e < N; e++) {
-    if (fmt == vg::kFmtP2PKH)
-      out[e] = glv ? vg::glv_dfa_lane<vg::kFmtP2PKH>(bx, by, tx, ty, inv, dfa,
-                                                     rem, B, N, e)
-                   : vg::dfa_lane<vg::kFmtP2PKH>(bx, by, tx, ty, inv, dfa,
-                                                 rem, B, N, e);
-    else
-      out[e] = glv ? vg::glv_dfa_lane<vg::kFmtP2WPKH>(bx, by, tx, ty, inv,
-                                                      dfa, rem, B, N, e)
-                   : vg::dfa_lane<vg::kFmtP2WPKH>(bx, by, tx, ty, inv, dfa,
-                                                  rem, B, N, e);
-  }
+  VG_FMT_SWITCH(dfa_lanes, glv, bx, by, tx, ty, inv, table, accept, width,
+                start, rem, out, K, B)
 }
 }
 """
 
 K, B = 2, 256
-FORMATS = (AddressFormat.P2PKH, AddressFormat.P2WPKH)
+FORMATS = tuple(fused.FMT_CODE)
 fmt_ids = pytest.mark.parametrize("fmt", FORMATS, ids=lambda f: f.value)
 # window 0 is based below B, so it holds the doubling lane; window 1 is
 # partial
@@ -156,9 +200,9 @@ def lib(tmp_path_factory):
                     f"-I{build.CSRC}", "-o", str(so), str(src)], check=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.h_base58.argtypes, lib.h_base58.restype = [p, p], i
+    lib.h_base58.argtypes, lib.h_base58.restype = [ctypes.c_uint32, p, p], i
     lib.h_bech32.argtypes, lib.h_bech32.restype = [p, p], None
-    lib.h_interval.argtypes = [i] + [p] * 7 + [i, p, p, i, i]
+    lib.h_interval.argtypes = [i, i] + [p] * 7 + [i, p, p, i, i]
     lib.h_interval.restype = None
     lib.h_dfa.argtypes = [i, i] + [p] * 7 + [i, i, p, p, i, i]
     lib.h_dfa.restype = None
@@ -168,6 +212,8 @@ def lib(tmp_path_factory):
                        ("h_ladder", [p] * 9 + [i, i]),
                        ("h_ladder_affine", [p] * 6 + [i]),
                        ("h_chain", [p, p, p, i, i]),
+                       ("h_eip55", [p, p, i]), ("h_script_hash", [p, p, i]),
+                       ("h_keccak", [p, i]), ("h_xy", [p, p, p, p, i]),
                        ("h_p2tr_finish", [i] + [p] * 6 + [i, p, p, i, i, p, p,
                                                           i, i])):
         fn = getattr(lib, name)
@@ -194,9 +240,9 @@ def lanes():
     return bx, by, tx, ty, inv, torch.tensor(REMAINING, dtype=torch.int32)
 
 
-def test_encoders_equal_plain(lib):
-    """Base58Check symbols and length, and bech32 symbols, of 512 hash160s
-    (with 1..12 leading zero bytes and an all-zero one among them)."""
+def _values():
+    """(w (512, 5) uint32, the 5 word tensors): 512 random 20-byte values
+    with 1..12 leading zero bytes and an all-zero one among them."""
     rng = np.random.default_rng(99)
     hs = [rng.bytes(20) for _ in range(512)]
     for j in range(12):
@@ -204,45 +250,121 @@ def test_encoders_equal_plain(lib):
     hs[12] = b"\0" * 20
     w = np.array([[int.from_bytes(h[4 * i:4 * i + 4], "big") for i in range(5)]
                   for h in hs], dtype=np.uint32)
-    words = [torch.from_numpy(w[:, i].astype(np.int64)) for i in range(5)]
-    syms58, len58 = encode.base58check_symbols(0, words)
+    return w, [torch.from_numpy(w[:, i].astype(np.int64)) for i in range(5)]
+
+
+@pytest.mark.parametrize("version", [0, 5])
+def test_encoders_equal_plain(lib, version):
+    """Base58Check symbols and length (version 0: P2PKH and uncompressed,
+    5: P2SH-P2WPKH, always 34 symbols), and bech32 symbols."""
+    w, words = _values()
+    syms58, len58 = encode.base58check_symbols(version, words)
     syms32, _ = encode.bech32_p2wpkh_symbols(words)
-    for j in range(len(hs)):
+    for j in range(len(w)):
         row = np.ascontiguousarray(w[j])
         out = np.zeros(34, np.uint8)
-        assert lib.h_base58(_ptr(row), _ptr(out)) == int(len58[j])
+        assert lib.h_base58(version, _ptr(row), _ptr(out)) == int(len58[j])
         np.testing.assert_array_equal(out, syms58[:, j].numpy())
         out = np.zeros(39, np.uint8)
         lib.h_bech32(_ptr(row), _ptr(out))
         np.testing.assert_array_equal(out, syms32[:, j].numpy())
-    assert min(len58.tolist()) < 33
+    if version == 0:
+        assert min(len58.tolist()) < 33
+    else:
+        assert len58.tolist() == [34] * len(w)
+
+
+def test_eip55_and_script_hash_equal_plain(lib):
+    """EIP-55 symbols (a second Keccak-f over the lowercase hex) and the
+    P2SH-P2WPKH script hash of 512 values."""
+    w, words = _values()
+    n = len(w)
+    syms = np.zeros((n, 40), np.uint8)
+    lib.h_eip55(_ptr(w), _ptr(syms), n)
+    want, length = encode.eth_symbols(words)
+    np.testing.assert_array_equal(syms.T, want.numpy())
+    assert length.tolist() == [40] * n and int((want >= 16).sum()) > 0
+    out = np.zeros((n, 5), np.uint32)
+    lib.h_script_hash(_ptr(w), _ptr(out), n)
+    want = encode.script_hash_words(words)
+    np.testing.assert_array_equal(out.T.astype(np.int64),
+                                  torch.stack(want).numpy())
+
+
+def test_keccak_f1600_equals_plain(lib):
+    """64 random states, and the zero state, through the permutation."""
+    from vgen_tpu_torch.ops import keccak
+
+    rng = np.random.default_rng(98)
+    a = rng.integers(0, 1 << 64, size=(65, 25), dtype=np.uint64)
+    a[0] = 0
+    hi = torch.from_numpy((a >> np.uint64(32)).astype(np.int64).T.copy())
+    lo = torch.from_numpy((a & np.uint64(0xFFFFFFFF)).astype(np.int64).T.copy())
+    want_hi, want_lo = keccak.keccak_f1600(hi, lo)
+    got = np.ascontiguousarray(a)
+    lib.h_keccak(_ptr(got), 65)
+    np.testing.assert_array_equal((got >> np.uint64(32)).astype(np.int64).T,
+                                  want_hi.numpy())
+    np.testing.assert_array_equal(
+        (got & np.uint64(0xFFFFFFFF)).astype(np.int64).T, want_lo.numpy())
+
+
+def test_sha256_x65_and_eth_account_equal_plain(lib):
+    """SHA-256 of 04 || x || y and the Ethereum account of 128 points."""
+    from vgen_tpu_torch.ops import keccak, sha256
+
+    pts = [ec.scalar_mult(k) for k in range(7, 7 + 128 * 977, 977)]
+    x = u256.as_i32(u256.from_ints([p[0] for p in pts]))
+    y = u256.as_i32(u256.from_ints([p[1] for p in pts]))
+    st = np.zeros((128, 8), np.uint32)
+    acct = np.zeros((128, 5), np.uint32)
+    lib.h_xy(_ptr(_u32(x)), _ptr(_u32(y)), _ptr(st), _ptr(acct), 128)
+    x64, y64 = u256.to_i64(x), u256.to_i64(y)
+    np.testing.assert_array_equal(
+        st.T.astype(np.int64), torch.stack(sha256.sha256_x65_state(x64, y64)).numpy())
+    np.testing.assert_array_equal(
+        acct.T.astype(np.int64),
+        torch.stack(keccak.eth_account_words_from_xy(x64, y64)).numpy())
 
 
 @pytest.mark.parametrize("glv", [False, True], ids=["C", "B"])
 @fmt_ids
 def test_interval_lanes_equal_plain(lib, lanes, fmt, glv):
     pat = Pattern({AddressFormat.P2PKH: "^1[A-H]",
-                   AddressFormat.P2WPKH: "^bc1q[q-z]"}[fmt])
+                   AddressFormat.P2WPKH: "^bc1q[q-z]",
+                   AddressFormat.P2SH_P2WPKH: "^3[A-H]",
+                   AddressFormat.P2PKH_UNCOMPRESSED: "^1[A-H]",
+                   AddressFormat.ETHEREUM: "^0x[0-3]"}[fmt])
     ivs = pat.prefilter_intervals(fmt)[0]
     n_slots = pipeline.interval_slot_count(len(ivs))
     lo, hi = pipeline.intervals_to_words(ivs, n_slots=n_slots)
     bx, by, tx, ty, inv, rem = lanes
     plain = fused.range_glv_match_plain if glv else fused.range_match_plain
-    want = plain(bx, by, tx, ty, inv, u256.as_i32(lo), u256.as_i32(hi),
+    want = plain(fmt, bx, by, tx, ty, inv, u256.as_i32(lo), u256.as_i32(hi),
                  rem).numpy()
     out = np.zeros((K, B), np.int32)
-    lib.h_interval(int(glv), *(_ptr(_u32(t)) for t in (bx, by, tx, ty, inv)),
+    lib.h_interval(fused.FMT_CODE[fmt], int(glv),
+                   *(_ptr(_u32(t)) for t in (bx, by, tx, ty, inv)),
                    _ptr(lo), _ptr(hi), n_slots, _ptr(rem.numpy()), _ptr(out),
                    K, B)
     np.testing.assert_array_equal(out, want)
     assert int((want > 0).sum()) > 0
 
 
-@pytest.mark.parametrize("src", ["c[a4]t", "q$", "(?i)^1lov", "a.{8}$"])
+# (format, pattern): four patterns for P2PKH and P2WPKH, two for each
+# format whose lanes cost more on the CPU; a.{8}$ has more than 256 states
+DFA_CASES = [(f, src) for f in FORMATS[:2]
+             for src in ("c[a4]t", "q$", "(?i)^1lov", "a.{8}$")] + [
+    (AddressFormat.P2SH_P2WPKH, "c[a4]"), (AddressFormat.P2SH_P2WPKH, "a.{8}$"),
+    (AddressFormat.P2PKH_UNCOMPRESSED, "(?i)^1lov"),
+    (AddressFormat.P2PKH_UNCOMPRESSED, "a.{8}$"),
+    (AddressFormat.ETHEREUM, "Ab$"), (AddressFormat.ETHEREUM, "(?i)^0xa.{6}$")]
+
+
 @pytest.mark.parametrize("glv", [False, True], ids=["D", "E"])
-@fmt_ids
+@pytest.mark.parametrize("fmt,src", DFA_CASES,
+                         ids=[f"{f.value}-{s}" for f, s in DFA_CASES])
 def test_dfa_lanes_equal_plain(lib, lanes, fmt, glv, src):
-    """a.{8}$ has more than 256 states."""
     dfa = Pattern(src).device_dfa(fmt)
     table = np.ascontiguousarray(dfa.table.astype(np.int32))
     accept = np.ascontiguousarray(dfa.accept.astype(np.int32))
@@ -251,7 +373,7 @@ def test_dfa_lanes_equal_plain(lib, lanes, fmt, glv, src):
     want = plain(fmt, bx, by, tx, ty, inv, torch.from_numpy(table),
                  torch.from_numpy(accept), dfa.start, rem).numpy()
     out = np.zeros((K, B), np.int32)
-    lib.h_dfa(fused._DFA_FMT_CODE[fmt], int(glv),
+    lib.h_dfa(fused.FMT_CODE[fmt], int(glv),
               *(_ptr(_u32(t)) for t in (bx, by, tx, ty, inv)),
               _ptr(table), _ptr(accept), table.shape[1], dfa.start,
               _ptr(rem.numpy()), _ptr(out), K, B)

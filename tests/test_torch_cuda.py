@@ -196,3 +196,56 @@ def test_p2tr_step_kernels_h_i_equal_plain(dev, wt, kind):
     assert torch.equal(got.cpu(), want)
     assert torch.equal(rows.cpu(), step(*cpu, *margs, rem, wt))
     assert int(want.sum()) > 0
+
+
+# -- P2SH-P2WPKH, uncompressed P2PKH, Ethereum: kernels B to E ---------------
+
+NEW_FORMATS = {
+    # format: (interval pattern, DFA patterns; a.{8}$ has more than 256 states)
+    AddressFormat.P2SH_P2WPKH: ("^3A", ("c[a4]", "a.{8}$")),
+    AddressFormat.P2PKH_UNCOMPRESSED: ("^1A", ("c[a4]", "a.{8}$")),
+    AddressFormat.ETHEREUM: ("^0xab", ("Ab", "a.{8}$")),
+}
+
+
+@pytest.mark.parametrize("glv", [False, True], ids=["C", "B"])
+@pytest.mark.parametrize("fmt", list(NEW_FORMATS), ids=lambda f: f.value)
+def test_interval_kernels_b_c_new_formats_equal_plain(dev, fmt, glv):
+    ivs = Pattern(NEW_FORMATS[fmt][0]).match_intervals(fmt)
+    lo, hi = (u256.as_i32(a) for a in pipeline.intervals_to_words(
+        ivs, n_slots=pipeline.interval_slot_count(len(ivs))))
+    bx, by, tx, ty, rem = _step_inputs()
+    args = (bx, by, tx, ty, lo, hi, rem)
+    kernel = fused.range_glv_match if glv else fused.range_match
+    before = kernel.launches
+    got = fused.fused_range_mask_step(fmt, *(a.to(dev) for a in args),
+                                      glv=glv)
+    rows = fused.fused_range_scan_step(fmt, *(a.to(dev) for a in args),
+                                       glv=glv)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    want = fused.fused_range_mask_step(fmt, *args, glv=glv)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(rows.cpu(), fused.fused_range_scan_step(fmt, *args,
+                                                               glv=glv))
+    assert int((want > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("case", [0, 1])
+@pytest.mark.parametrize("glv", [False, True], ids=["D", "E"])
+@pytest.mark.parametrize("fmt", list(NEW_FORMATS), ids=lambda f: f.value)
+def test_dfa_kernels_d_e_new_formats_equal_plain(dev, fmt, glv, case):
+    dfa = Pattern(NEW_FORMATS[fmt][1][case]).device_dfa(fmt)
+    table = torch.from_numpy(dfa.table.astype(np.int32))
+    accept = torch.from_numpy(dfa.accept.astype(np.int32))
+    bx, by, tx, ty, rem = _step_inputs()
+    cpu = (bx, by, tx, ty, table, accept)
+    kernel = fused.glv_dfa_match if glv else fused.dfa_match
+    before = kernel.launches
+    got = fused.fused_scan_mask_step(fmt, *(a.to(dev) for a in cpu),
+                                     dfa.start, rem.to(dev), glv)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = fused.fused_scan_mask_step(fmt, *cpu, dfa.start, rem, glv)
+    assert torch.equal(got.cpu(), want)
+    assert int((want > 0).sum()) > 0

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.ops import pipeline as jpipeline
 from vgen_tpu.scan import tables as jtables

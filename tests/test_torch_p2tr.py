@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.ops import curve as jcurve
 from vgen_tpu.ops import field as jfield

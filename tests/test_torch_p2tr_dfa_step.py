@@ -7,6 +7,7 @@ there."""
 
 import torch
 
+from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_p2tr import BASES, REMAINING, B, _points, check_rows, \
     port_rows, reference_rows
 from vgen_tpu_torch.scan import tables

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.ops import pipeline as jpipeline
 from vgen_tpu.scan import tables as jtables
@@ -91,7 +92,7 @@ def _oracle_keys_matching(fmt, pat, base, remaining):
 @fmt_ids
 def test_range_match_vs_make_range_mask(fmt, port_inputs, oracle_points):
     lo, hi = _intervals(fmt)
-    mask = fused.range_match(*port_inputs[:5], u256.as_i32(lo),
+    mask = fused.range_match(fmt, *port_inputs[:5], u256.as_i32(lo),
                              u256.as_i32(hi), port_inputs[5])
     ref = jpipeline.make_range_mask(_j(fmt), glv=False, unroll=True)
     for k, (x3, y3) in enumerate(oracle_points):
@@ -239,7 +240,8 @@ def test_dfa_wrappers_never_run_plain_for_device_tensors():
     bx = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     tx = torch.zeros((8, 256), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="meta"):
-        fused.range_match(bx, bx, tx, tx, tx, bx[:, :5], bx[:, :5], bx[:, 0])
+        fused.range_match(AddressFormat.P2PKH, bx, bx, tx, tx, tx, bx[:, :5],
+                          bx[:, :5], bx[:, 0])
     table = torch.zeros((4, 60), dtype=torch.int32, device="meta")
     for kernel in (fused.dfa_match, fused.glv_dfa_match):
         with pytest.raises(ValueError, match="meta"):
@@ -248,6 +250,9 @@ def test_dfa_wrappers_never_run_plain_for_device_tensors():
         with pytest.raises(ValueError, match="width"):
             kernel(AddressFormat.P2WPKH, bx, bx, tx, tx, tx, table,
                    table[:, 0], 0, bx[:, 0])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="width 60, expected 24"):
             kernel(AddressFormat.ETHEREUM, bx, bx, tx, tx, tx, table,
+                   table[:, 0], 0, bx[:, 0])
+        with pytest.raises(ValueError, match="kernels F to I"):
+            kernel(AddressFormat.P2TR, bx, bx, tx, tx, tx, table,
                    table[:, 0], 0, bx[:, 0])

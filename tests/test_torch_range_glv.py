@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.ops import curve as jcurve
 from vgen_tpu.ops import pipeline as jpipeline
@@ -61,7 +62,7 @@ def _port_step(table, fmt, bases, remaining):
     lo_t, hi_t = u256.as_i32(lo), u256.as_i32(hi)
     rem = torch.tensor(remaining, dtype=torch.int32)
     inv = fused.batch_inverse_dx(args[0], tx)
-    mask = fused.range_glv_match(*args, inv, lo_t, hi_t, rem)
+    mask = fused.range_glv_match(fmt, *args, inv, lo_t, hi_t, rem)
     rows = fused.fused_range_scan_step(fmt, *args, lo_t, hi_t, rem)
     return mask, rows
 
@@ -171,10 +172,14 @@ def test_pack_tail_orders_and_pads():
 
 
 def test_unported_format_raises():
+    """Every address format is ported; anything else raises."""
+    assert set(fused.DEVICE_FORMATS) == set(AddressFormat)
+    for fmt in AddressFormat:
+        fused.check_format(fmt)
     z = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused.fused_range_scan_step(AddressFormat.ETHEREUM, z, z, z.T, z.T,
-                                    z[:, :5], z[:, :5], z[:, 0])
+    with pytest.raises(ValueError, match="scan kernels cover"):
+        fused.fused_range_scan_step("p2pk", z, z, z.T, z.T, z[:, :5],
+                                    z[:, :5], z[:, 0])
 
 
 def test_wrappers_never_run_plain_for_device_tensors():
@@ -185,5 +190,5 @@ def test_wrappers_never_run_plain_for_device_tensors():
     with pytest.raises(ValueError, match="meta"):
         fused.batch_inverse_dx(bx, tx)
     with pytest.raises(ValueError, match="meta"):
-        fused.range_glv_match(bx, bx, tx, tx, tx, bx[:, :5], bx[:, :5],
-                              bx[:, 0])
+        fused.range_glv_match(AddressFormat.P2PKH, bx, bx, tx, tx, tx,
+                              bx[:, :5], bx[:, :5], bx[:, 0])

@@ -11,7 +11,9 @@ import re
 import types
 
 import pytest
+import torch
 
+from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgen_tpu.crypto.address import AddressFormat as JAddressFormat
 from vgen_tpu.pattern import Pattern as JPattern
 from vgen_tpu.scan import scanner as jsc

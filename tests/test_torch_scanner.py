@@ -128,8 +128,11 @@ def test_range_and_dfa_paths_scan(p2pkh_scanner, kind):
                                  AddressFormat.P2SH_P2WPKH,
                                  AddressFormat.P2PKH_UNCOMPRESSED])
 def test_unported_formats_raise(fmt):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sc.DeviceScanner(fmt, B, "cpu")
+    """The formats ported last build a scanner; a name that is not an
+    address format raises."""
+    assert sc.DeviceScanner(fmt, B, "cpu").fmt == fmt
+    with pytest.raises(ValueError, match="scan kernels cover"):
+        sc.DeviceScanner(fmt.value, B, "cpu")
 
 
 @pytest.mark.parametrize("n_ivs", [0, 1, 2, 3, 5, 8, 9])
@@ -152,6 +155,11 @@ def test_constants_equal_reference():
     assert [f.value for f in pipeline.GLV_FORMATS] == \
         [f.value for f in jpipeline.GLV_FORMATS]
     assert pipeline.MAX_INTERVALS == jpipeline.MAX_INTERVALS
+    assert [f.value for f in pipeline.GLV_EXACT_Y] == \
+        [f.value for f in jpipeline.GLV_EXACT_Y]
+    for name in ("FORMAT_DFA_WIDTH", "INTERVAL_WORDS"):
+        assert ({f.value: v for f, v in getattr(pipeline, name).items()}
+                == {f.value: v for f, v in getattr(jpipeline, name).items()})
 
 
 def test_cli_generate_cpu_backend(capsys):

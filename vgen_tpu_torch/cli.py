@@ -37,7 +37,10 @@ from vgen_tpu_torch.pattern import Pattern, RegexError
 from vgen_tpu_torch.scan.checkpoint import CheckpointManager
 from vgen_tpu_torch.scan.host import ScanConfig, ScanResult, StopFlag
 
-FORMATS = ["p2pkh", "p2wpkh", "p2sh-p2wpkh", "p2tr", "ethereum"]
+# the JAX package's five choices, and uncompressed P2PKH, which its CLI
+# reaches only through a puzzle provider's address
+FORMATS = ["p2pkh", "p2wpkh", "p2sh-p2wpkh", "p2tr", "ethereum",
+           "p2pkh-uncompressed"]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -410,7 +413,6 @@ def cmd_estimate(args) -> int:
     """Difficulty and the native CPU scanner's rate; with a visible card,
     about 2 s of the port's device scan on the pattern's own route."""
     from vgen_tpu_torch import native
-    from vgen_tpu_torch.ops import fused
     from vgen_tpu_torch.scan.host import benchmark
     from vgen_tpu_torch.scan import scanner as sc
 
@@ -436,10 +438,6 @@ def cmd_estimate(args) -> int:
     print(f"Expected time: {format_duration(expected)} (CPU)")
     if not torch.cuda.is_available():
         print("Note: no CUDA card is visible; no device calibration.")
-        return 0
-    if fmt not in fused.DEVICE_FORMATS:
-        print(f"Note: the port's device scan does not cover {fmt.value} "
-              "yet (ROADMAP queue 1 item 10); no device calibration.")
         return 0
     print("Calibrating on the card...", file=sys.stderr)
     stats = sc.benchmark_device(fmt, pattern_str, min_seconds=2.0,

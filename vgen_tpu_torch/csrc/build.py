@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc at first use; load with ctypes.
 
-Each ``.cu`` file in this directory (a "unit": ``kernels`` holds kernels A
-to E, ``p2tr`` kernels F to I) compiles into its own shared library with a
-plain C interface, for ``sm_90a`` (Hopper).  The first ``load`` starts one
+Each ``.cu`` file in this directory (a "unit": ``kernels`` holds kernel A
+and kernels B to E for the five hash formats, ``p2tr`` kernels F to I)
+compiles into its own shared library with a plain C interface, for
+``sm_90a`` (Hopper).  The first ``load`` starts one
 nvcc per unit, all at once, and waits for them.  The libraries land in
 ``build/vgen_tpu_torch/`` at the repository root, named by the unit and a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
@@ -116,8 +117,9 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
         signatures = {
             "kernels": {
                 "vgen_batch_inverse_dx": [p, p, p, p, i, i, i, p],
-                "vgen_range_glv_match": [p, p, p, p, p, p, p, i, p, p, i, i, p],
-                "vgen_range_match": [p, p, p, p, p, p, p, i, p, p, i, i, p],
+                "vgen_range_glv_match": [i, p, p, p, p, p, p, p, i, p, p, i, i,
+                                         p],
+                "vgen_range_match": [i, p, p, p, p, p, p, p, i, p, p, i, i, p],
                 "vgen_dfa_match": [p, p, p, p, p, p, p, i, i, i, p, p, i, i, p],
                 "vgen_glv_dfa_match": [p, p, p, p, p, p, p, i, i, i, p, p, i,
                                        i, p],

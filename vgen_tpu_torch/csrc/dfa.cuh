@@ -16,9 +16,13 @@
 
 namespace vg {
 
-// Address formats of the DFA kernels (the values the wrappers pass).
-constexpr int kFmtP2PKH = 0;   // Base58Check, W = 60
-constexpr int kFmtP2WPKH = 1;  // bech32, W = 34
+// Address formats of kernels B to E (the values the wrappers pass,
+// vgen_tpu_torch/ops/fused.py FMT_CODE), with the DFA width of each.
+constexpr int kFmtP2PKH = 0;               // Base58Check v0, W = 60
+constexpr int kFmtP2WPKH = 1;              // bech32, W = 34
+constexpr int kFmtP2SHP2WPKH = 2;          // Base58Check v5, W = 60
+constexpr int kFmtP2PKHUncompressed = 3;   // Base58Check v0, W = 60
+constexpr int kFmtEthereum = 4;            // EIP-55 hex, W = 24
 
 struct Dfa {
   const int32_t* table;   // (S, width), read through the read-only path
@@ -39,17 +43,24 @@ VG_FN bool dfa_walk(const Dfa& dfa, const uint8_t* syms, int T, int length) {
   return VG_LDG(dfa.accept + s) != 0;
 }
 
-// Whether the address of hash160 h[5] in format kFmt is accepted.
+// Whether the address of value h[5] (the format's hash, big-endian words)
+// in format kFmt is accepted: its symbols, then a walk of T + 1 steps with
+// T the format's symbol count (34, 39 or 40).
 template <int kFmt>
-VG_FN bool h160_matches(const Dfa& dfa, const uint32_t h[5]) {
-  if constexpr (kFmt == kFmtP2PKH) {
-    uint8_t syms[kBase58Syms];
-    const int len = base58check_symbols(syms, 0u, h);
-    return dfa_walk(dfa, syms, kBase58Syms, len);
-  } else {
+VG_FN bool address_matches(const Dfa& dfa, const uint32_t h[5]) {
+  if constexpr (kFmt == kFmtP2WPKH) {
     uint8_t syms[kBech32Syms];
     bech32_p2wpkh_symbols(syms, h);
     return dfa_walk(dfa, syms, kBech32Syms, kBech32Syms);
+  } else if constexpr (kFmt == kFmtEthereum) {
+    uint8_t syms[kEthSyms];
+    eip55_symbols(syms, h);
+    return dfa_walk(dfa, syms, kEthSyms, kEthSyms);
+  } else {
+    uint8_t syms[kBase58Syms];
+    const int len =
+        base58check_symbols(syms, kFmt == kFmtP2SHP2WPKH ? 5u : 0u, h);
+    return dfa_walk(dfa, syms, kBase58Syms, len);
   }
 }
 

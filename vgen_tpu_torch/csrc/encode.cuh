@@ -1,19 +1,23 @@
-// Address symbols, per thread: Base58Check for P2PKH (version byte 0) and
-// bech32 for P2WPKH (witness version 0) from a hash160, bech32m for P2TR
-// (witness version 1) from the output key's x.  The symbols are digit
-// values in the format's alphabet, the input of the DFA walk (dfa.cuh), as
-// vgen_tpu/ops/encode.py emits them; no ASCII is formed.
+// Address symbols, per thread, from a format's 5-word value: Base58Check
+// for P2PKH and uncompressed P2PKH (version byte 0) and P2SH-P2WPKH
+// (version 5), bech32 for P2WPKH (witness version 0), EIP-55 cased hex for
+// Ethereum; and bech32m for P2TR (witness version 1) from the output key's
+// x.  The symbols are digit values in the format's alphabet, the input of
+// the DFA walk (dfa.cuh), as vgen_tpu/ops/encode.py emits them; ASCII is
+// formed only for the EIP-55 checksum hash.
 //
 // Like the other headers this compiles as plain C++ too.
 #pragma once
 
+#include "keccak.cuh"
 #include "sha256.cuh"
 
 namespace vg {
 
-constexpr int kBase58Syms = 34;  // symbols of a version-0 Base58Check address
+constexpr int kBase58Syms = 34;  // symbols of a Base58Check address (version 0 or 5)
 constexpr int kBech32Syms = 39;  // [witver] + 32 groups + 6 checksum symbols
 constexpr int kBech32mSyms = 59;  // [witver 1] + 52 groups + 6 checksum symbols
+constexpr int kEthSyms = 40;  // hex digits of an Ethereum account after "0x"
 constexpr unsigned long long kB58Pow5 = 656356768ull;  // 58^5 < 2^32
 
 // First big-endian word of SHA256d(version || h160): the four Base58Check
@@ -50,7 +54,10 @@ VG_FN uint32_t base58check_checksum(uint32_t version, const uint32_t h[5]) {
 // The payload is a 200-bit number in 7 big-endian words (word 0 holds the
 // version byte).  Each of 7 rounds divides it by 58^5 with 64-bit
 // intermediates and splits the remainder into 5 digits; the 35th digit is
-// 0 because the value is below 2^192 < 58^34 for version 0.
+// 0 because the value is below 6 * 2^192 < 2^195 < 58^34 (58^34 > 2^199)
+// for versions 0 and 5.  Version 5 has no leading zero byte (z = 0) and a
+// value above 5 * 2^192 > 58^33, so every P2SH-P2WPKH address has 34
+// symbols; version 0 keeps the variable length.
 VG_FN int base58check_symbols(uint8_t syms[kBase58Syms], uint32_t version,
                               const uint32_t h[5]) {
   uint32_t n[7];
@@ -103,6 +110,41 @@ VG_FN int base58check_symbols(uint8_t syms[kBase58Syms], uint32_t version,
     syms[j] = src < kBase58Syms ? d[kBase58Syms - 1 - src] : (uint8_t)0;
   }
   return kBase58Syms - shift;
+}
+
+// EIP-55 symbols of an Ethereum account h[5] (big-endian words) after
+// "0x": nibble i (most significant first) is 0-9 -> 0..9, a-f -> 10..15,
+// and A-F -> 16..21 where nibble i of the checksum hash is 8 or more.  The
+// checksum hash is keccak256 of the 40 lowercase-hex ASCII bytes: word w's
+// eight nibbles fill lane w (nibble j in byte j), the 0x01 pad sits at
+// byte 40 (lane 5), the 0x80 pad at byte 135 (lane 16's top bit).  Nibble
+// i's checksum is the top (i even) or bottom (i odd) half of digest byte
+// i / 2, so its bit 3 is bit 7 or bit 3 of that byte.  Always 40 symbols.
+VG_FN void eip55_symbols(uint8_t syms[kEthSyms], const uint32_t h[5]) {
+  uint64_t a[25];
+#pragma unroll
+  for (int w = 0; w < 5; w++) {
+    uint64_t lane = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      const uint32_t nib = (h[w] >> (28 - 4 * j)) & 0xFu;
+      syms[8 * w + j] = (uint8_t)nib;
+      lane |= (uint64_t)(nib + (nib >= 10u ? 87u : 48u)) << (8 * j);
+    }
+    a[w] = lane;
+  }
+  a[5] = 0x01ull;
+#pragma unroll
+  for (int i = 6; i < 25; i++) a[i] = 0ull;
+  a[16] = 0x8000000000000000ull;
+  keccak_f1600(a);
+#pragma unroll
+  for (int i = 0; i < kEthSyms; i++) {
+    const int d = i / 2;
+    const uint32_t byte = (uint32_t)(a[d / 8] >> (8 * (d % 8))) & 0xFFu;
+    const uint32_t upper = (byte >> (i % 2 == 0 ? 7 : 3)) & 1u;
+    if (syms[i] >= 10 && upper) syms[i] += 6;
+  }
 }
 
 VG_CONSTANT uint32_t BECH32_GEN[5] = {0x3B6A57B2u, 0x26508E6Du, 0x1EA119FAu,

@@ -19,65 +19,80 @@
 //   coalesce), and the three passes are one launch.  The output is
 //   canonical, so the chain geometry does not change the result.
 //
+// Kernels B to E serve the five hash formats, each a template on the format
+// (match_kernels.cuh, per-lane bodies in scan_lanes.cuh), all instanced in
+// this unit.  Every format hashes the lane's point into a 5-word value (scan_lanes.cuh value_words):
+// hash160 of the compressed key (P2PKH, P2WPKH), of its redeem script
+// (P2SH-P2WPKH), hash160 of 04 || x || y (uncompressed P2PKH), or the
+// Ethereum account keccak256(x || y)[12:32].
+//
 // Kernel B, range_glv_match
-//   Replaces vgen_tpu/ops/pallas_fused.py _make_range_glv_kernel (glv=True,
-//   compressed-hash160 formats) as called through fused_range_match_fn, and
-//   the per-window lax.scan of _build_step: one launch covers all K windows.
-//   Computes: per lane, the x-only affine add, x * beta, x * beta^2, six
-//   hash160s of (2 + pi) || x_v, the interval compare, and a 6-bit mask
-//   (bit 2v + pi); 0 where dx == 0 or b >= remaining[k].
-//   Bound: integer ALU.  Six SHA-256 + RIPEMD-160 pairs per lane (about
-//   25k 32-bit logic/add instructions) dominate the five field multiplies;
-//   it reads 96 bytes and writes 4 bytes per lane.
+//   Replaces vgen_tpu/ops/pallas_fused.py _make_range_glv_kernel (glv=True)
+//   as called through fused_range_match_fn, and the per-window lax.scan of
+//   _build_step: one launch covers all K windows.
+//   Computes: per lane, the affine add (x only for the compressed-key
+//   formats; x and y for the GLV_EXACT_Y formats, uncompressed and
+//   Ethereum), x * beta, x * beta^2, the six variants' values, the
+//   interval compare, and a 6-bit mask (bit 2v + pi: prefix 2 + pi of
+//   beta^v x, or (beta^v x, +y) for pi = 0 and (beta^v x, -y) for pi = 1);
+//   0 where dx == 0 or b >= remaining[k].
+//   Bound: integer ALU.  Six hashes per lane (P2PKH: six SHA-256 +
+//   RIPEMD-160 pairs, about 25k 32-bit logic/add instructions; P2SH-P2WPKH
+//   and uncompressed: two compressions per variant; Ethereum: one
+//   Keccak-f per variant) dominate the five field multiplies; it reads 96
+//   bytes and writes 4 bytes per lane.
 //   Design: one thread per lane keeps the whole hash state in registers;
-//   the interval table (at most 8 slots) is staged in shared memory.
+//   the interval table (at most 8 slots) is staged in shared memory.  The
+//   exact-y variant pair negates y in place (twice per beta power).
 //
 // Kernel C, range_match
-//   Replaces vgen_tpu/ops/pallas_fused.py _make_range_kernel (glv=False,
-//   P2PKH and P2WPKH) as called through fused_range_match_fn, and the
-//   per-window lax.scan of _build_step: one launch covers all K windows.
-//   Computes: per lane, the full affine add with y canonical, hash160 of
-//   (2 + (y & 1)) || x, the interval compare -> 0/1; 0 where dx == 0 or
-//   b >= remaining[k].
-//   Bound: integer ALU, one SHA-256 + RIPEMD-160 pair and three field
-//   multiplies per key (a sixth of kernel B's hashing per lane), 96 bytes
-//   read and 4 written per lane.
+//   Replaces vgen_tpu/ops/pallas_fused.py _make_range_kernel (glv=False) as
+//   called through fused_range_match_fn, and the per-window lax.scan of
+//   _build_step: one launch covers all K windows.
+//   Computes: per lane, the full affine add with y canonical, the format's
+//   value (the compressed prefix is 2 + (y & 1)), the interval compare ->
+//   0/1; 0 where dx == 0 or b >= remaining[k].
+//   Bound: integer ALU, one value and three field multiplies per key (a
+//   sixth of kernel B's hashing per lane), 96 bytes read and 4 written per
+//   lane.
 //   Design: kernel B's lane with the y of the full finish in place of the
 //   GLV loop; y is exact (every field op returns a value < p), so its
 //   parity is the prefix byte's.
 //
 // Kernel D, dfa_match
-//   Replaces _make_kernel (glv=False) as called through fused_match_fn,
-//   for P2PKH (Base58Check, W = 60) and P2WPKH (bech32, W = 34).
-//   Computes: per lane, the full finish and hash160 as in C, the address
-//   symbols (Base58Check: SHA256d checksum, 7 rounds of division by 58^5
-//   on 7 words, the reference's leading-zero shift; bech32: 32 five-bit
-//   groups and the polymod checksum), and the DFA walk of T + 1 steps
-//   -> 0/1.
-//   Bound: integer ALU (three SHA-256 compressions, one RIPEMD-160 and 49
-//   64-bit divisions by a constant for P2PKH) and T + 1 dependent loads
-//   from the DFA table, which the read-only cache serves (a table of S
-//   states is S * W * 4 bytes).
+//   Replaces _make_kernel (glv=False) as called through fused_match_fn.
+//   Computes: per lane, the full finish and the value as in C, the address
+//   symbols (Base58Check v0 or v5: SHA256d checksum, 7 rounds of division
+//   by 58^5 on 7 words, the reference's leading-zero shift; bech32: 32
+//   five-bit groups and the polymod checksum; EIP-55: 40 nibbles cased by
+//   a second Keccak-f over their lowercase-hex ASCII), and the DFA walk of
+//   T + 1 steps -> 0/1.
+//   Bound: integer ALU (for P2PKH three SHA-256 compressions, one
+//   RIPEMD-160 and 49 64-bit divisions by a constant) and T + 1 dependent
+//   loads from the DFA table, which the read-only cache serves (a table of
+//   S states is S * W * 4 bytes).
 //   Design: the TPU walked the DFA as a one-hot (S, W) f32 matmul per
 //   symbol, exact only up to 256 states; here each thread follows the
 //   table by index (__ldg), so any state count works.  Symbols sit in a
-//   per-thread array (34 or 39 bytes, local memory where the shift indexes
-//   it at run time).  Format is a template parameter.
+//   per-thread array (34, 39 or 40 bytes, local memory where the shift
+//   indexes it at run time).  Format is a template parameter.
 //
 // Kernel E, glv_dfa_match
-//   Replaces _make_glv_dfa_kernel (glv=True, the compressed-key formats)
-//   as called through fused_match_fn.
-//   Computes: per lane, kernel B's x-only finish, then for v in 0..2 and
-//   pi in 0..1 the symbols of hash160((2 + pi) || beta^v x) through the
-//   DFA -> a 6-bit mask (bit 2v + pi, kernel B's layout).
+//   Replaces _make_glv_dfa_kernel (glv=True) as called through
+//   fused_match_fn.
+//   Computes: per lane, kernel B's finish and six variants, each variant's
+//   value through the symbols and the DFA -> a 6-bit mask (kernel B's bit
+//   layout).
 //   Bound: six times kernel D's hashing, encoding and walk per lane, for
 //   six keys.
 //   Design: D's body shared through dfa.cuh; the variant loops are not
 //   unrolled, to bound the code size of the six inlined encoders.
 
-#include <cuda_runtime.h>
+#include "match_kernels.cuh"
 
-#include "scan_lanes.cuh"
+#define VG_HASH_FORMATS                                                  \
+  vg::kFmtP2PKH, vg::kFmtP2WPKH, vg::kFmtP2SHP2WPKH,                    \
+      vg::kFmtP2PKHUncompressed, vg::kFmtEthereum
 
 namespace {
 
@@ -90,84 +105,6 @@ __global__ void __launch_bounds__(kThreads)
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= T) return;
   vg::inv_dx_thread(bx, tx, out, scratch, B, N, T, M, t);
-}
-
-// Kernels B (kGlv) and C: the interval table (at most 8 slots) is staged in
-// shared memory.
-template <bool kGlv>
-__global__ void __launch_bounds__(kThreads)
-    interval_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
-                    const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
-                    const uint32_t* __restrict__ inv, const uint32_t* __restrict__ lo,
-                    const uint32_t* __restrict__ hi, int n_slots,
-                    const int32_t* __restrict__ remaining, int32_t* __restrict__ out,
-                    long B, long N) {
-  __shared__ uint32_t s_lo[8 * 5], s_hi[8 * 5];
-  for (int i = threadIdx.x; i < n_slots * 5; i += blockDim.x) {
-    s_lo[i] = lo[i];
-    s_hi[i] = hi[i];
-  }
-  __syncthreads();
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= N) return;
-  if constexpr (kGlv) {
-    out[e] = vg::range_glv_lane(bx, by, tx, ty, inv, s_lo, s_hi, n_slots,
-                                remaining, B, N, e);
-  } else {
-    out[e] = vg::range_lane(bx, by, tx, ty, inv, s_lo, s_hi, n_slots, remaining,
-                            B, N, e);
-  }
-}
-
-template <int kFmt, bool kGlv>
-__global__ void __launch_bounds__(kThreads)
-    dfa_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
-               const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
-               const uint32_t* __restrict__ inv, const int32_t* __restrict__ table,
-               const int32_t* __restrict__ accept, int width, int start,
-               const int32_t* __restrict__ remaining, int32_t* __restrict__ out,
-               long B, long N) {
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= N) return;
-  const vg::Dfa dfa{table, accept, width, start};
-  if constexpr (kGlv) {
-    out[e] = vg::glv_dfa_lane<kFmt>(bx, by, tx, ty, inv, dfa, remaining, B, N, e);
-  } else {
-    out[e] = vg::dfa_lane<kFmt>(bx, by, tx, ty, inv, dfa, remaining, B, N, e);
-  }
-}
-
-template <bool kGlv>
-int launch_interval(const void* bx, const void* by, const void* tx,
-                    const void* ty, const void* inv, const void* lo,
-                    const void* hi, int n_slots, const void* remaining,
-                    void* out, int K, int B, void* stream) {
-  const long N = (long)K * B;
-  const unsigned blocks = (unsigned)((N + kThreads - 1) / kThreads);
-  interval_kernel<kGlv><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
-      (const uint32_t*)ty, (const uint32_t*)inv, (const uint32_t*)lo,
-      (const uint32_t*)hi, n_slots, (const int32_t*)remaining, (int32_t*)out,
-      (long)B, N);
-  return (int)cudaGetLastError();
-}
-
-template <bool kGlv>
-int launch_dfa(const void* bx, const void* by, const void* tx, const void* ty,
-               const void* inv, const void* table, const void* accept,
-               int width, int start, int fmt, const void* remaining, void* out,
-               int K, int B, void* stream) {
-  if (fmt != vg::kFmtP2PKH && fmt != vg::kFmtP2WPKH) return (int)cudaErrorInvalidValue;
-  const long N = (long)K * B;
-  const unsigned blocks = (unsigned)((N + kThreads - 1) / kThreads);
-  auto kernel = fmt == vg::kFmtP2PKH ? dfa_kernel<vg::kFmtP2PKH, kGlv>
-                                     : dfa_kernel<vg::kFmtP2WPKH, kGlv>;
-  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
-      (const uint32_t*)ty, (const uint32_t*)inv, (const int32_t*)table,
-      (const int32_t*)accept, width, start, (const int32_t*)remaining,
-      (int32_t*)out, (long)B, N);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -186,35 +123,39 @@ int vgen_batch_inverse_dx(const void* bx, const void* tx, void* out,
   return (int)cudaGetLastError();
 }
 
-// bx, by (K, 8); tx, ty (8, B); inv (8, K*B); lo, hi (n_slots, 5) with
-// n_slots <= 8; remaining (K,) -> out (K, B) int32 variant masks.
-int vgen_range_glv_match(const void* bx, const void* by, const void* tx,
-                         const void* ty, const void* inv, const void* lo,
-                         const void* hi, int n_slots, const void* remaining,
-                         void* out, int K, int B, void* stream) {
-  return launch_interval<true>(bx, by, tx, ty, inv, lo, hi, n_slots, remaining,
-                               out, K, B, stream);
+// Kernels B (range_glv_match) and C (range_match) for fmt 0 = P2PKH,
+// 1 = P2WPKH, 2 = P2SH-P2WPKH, 3 = uncompressed P2PKH, 4 = Ethereum
+// (csrc/dfa.cuh); another fmt returns cudaErrorInvalidValue.  bx, by
+// (K, 8); tx, ty (8, B); inv (8, K*B); lo, hi (n_slots, 5) with n_slots <= 8;
+// remaining (K,) -> out (K, B): the 6-bit variant mask (B) or 0/1 (C).
+int vgen_range_glv_match(int fmt, const void* bx, const void* by,
+                         const void* tx, const void* ty, const void* inv,
+                         const void* lo, const void* hi, int n_slots,
+                         const void* remaining, void* out, int K, int B,
+                         void* stream) {
+  return vg::launch_interval<true, VG_HASH_FORMATS>(
+      fmt, bx, by, tx, ty, inv, lo, hi, n_slots, remaining, out, K, B, stream);
 }
 
-// Kernel C.  Same arguments as vgen_range_glv_match -> out (K, B) 0/1.
-int vgen_range_match(const void* bx, const void* by, const void* tx,
+int vgen_range_match(int fmt, const void* bx, const void* by, const void* tx,
                      const void* ty, const void* inv, const void* lo,
                      const void* hi, int n_slots, const void* remaining,
                      void* out, int K, int B, void* stream) {
-  return launch_interval<false>(bx, by, tx, ty, inv, lo, hi, n_slots,
-                                remaining, out, K, B, stream);
+  return vg::launch_interval<false, VG_HASH_FORMATS>(
+      fmt, bx, by, tx, ty, inv, lo, hi, n_slots, remaining, out, K, B, stream);
 }
 
-// Kernels D (glv = 0) and E (glv = 1).  bx, by (K, 8); tx, ty (8, B);
-// inv (8, K*B); table (S, width) and accept (S,) int32; fmt 0 = P2PKH,
-// 1 = P2WPKH; remaining (K,) -> out (K, B): 0/1 (D) or the 6-bit mask (E).
+// Kernels D (dfa_match) and E (glv_dfa_match), fmt as for B and C.  bx, by
+// (K, 8); tx, ty (8, B); inv (8, K*B); table (S, width) and accept (S,)
+// int32; remaining (K,) -> out (K, B): 0/1 (D) or the 6-bit mask (E).
 int vgen_dfa_match(const void* bx, const void* by, const void* tx,
                    const void* ty, const void* inv, const void* table,
                    const void* accept, int width, int start, int fmt,
                    const void* remaining, void* out, int K, int B,
                    void* stream) {
-  return launch_dfa<false>(bx, by, tx, ty, inv, table, accept, width, start,
-                           fmt, remaining, out, K, B, stream);
+  return vg::launch_dfa<false, VG_HASH_FORMATS>(
+      fmt, bx, by, tx, ty, inv, table, accept, width, start, remaining, out, K,
+      B, stream);
 }
 
 int vgen_glv_dfa_match(const void* bx, const void* by, const void* tx,
@@ -222,8 +163,9 @@ int vgen_glv_dfa_match(const void* bx, const void* by, const void* tx,
                        const void* accept, int width, int start, int fmt,
                        const void* remaining, void* out, int K, int B,
                        void* stream) {
-  return launch_dfa<true>(bx, by, tx, ty, inv, table, accept, width, start,
-                          fmt, remaining, out, K, B, stream);
+  return vg::launch_dfa<true, VG_HASH_FORMATS>(
+      fmt, bx, by, tx, ty, inv, table, accept, width, start, remaining, out, K,
+      B, stream);
 }
 
 }  // extern "C"

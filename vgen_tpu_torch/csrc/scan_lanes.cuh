@@ -137,20 +137,51 @@ VG_FN bool lane_add(uint32_t x[8], uint32_t y[8], const uint32_t* bx,
   return true;
 }
 
-// Kernel B, lane e = k*B + b: x-only affine add of window base k and table
-// point b, then bit 2v+pi of the result is set when
-// hash160((2+pi) || beta^v * x) lies in an interval.  0 where dx == 0 or
-// b >= remaining[k].
-VG_FN int32_t range_glv_lane(const uint32_t* bx, const uint32_t* by,
-                             const uint32_t* tx, const uint32_t* ty,
-                             const uint32_t* inv, const uint32_t* lo,
-                             const uint32_t* hi, int n_slots,
-                             const int32_t* remaining, long B, long N,
-                             long e) {
+// The GLV_EXACT_Y formats hash the full point, so their +- variant pair is
+// (x, +y) and (x, -y) (full finish); the others hash a compressed key,
+// whose +- pair is the two prefix parities (x-only finish).
+template <int kFmt>
+constexpr bool kExactY = kFmt == kFmtP2PKHUncompressed || kFmt == kFmtEthereum;
+
+// h = the 5-word value format kFmt hashes the point (x, y) into
+// (vgen_tpu/ops/pipeline.py interval_value_words): hash160 of the
+// compressed key with prefix 2 + par (P2PKH, P2WPKH; y unused), the hash160
+// of its redeem script (P2SH-P2WPKH), hash160 of 04 || x || y
+// (uncompressed; par unused), or the Ethereum account (par unused).
+template <int kFmt>
+VG_FN void value_words(uint32_t h[5], const uint32_t x[8], const uint32_t y[8],
+                       uint32_t par) {
+  if constexpr (kFmt == kFmtEthereum) {
+    eth_account(h, x, y);
+  } else {
+    uint32_t st[8];
+    if constexpr (kFmt == kFmtP2PKHUncompressed) {
+      sha256_x65(st, x, y);
+    } else {
+      sha256_x33(st, x, 2u + par);
+    }
+    ripemd160_sha_state(h, st);
+    if constexpr (kFmt == kFmtP2SHP2WPKH) script_hash(h, h);
+  }
+}
+
+// The 6-bit GLV mask of lane e (kernels B and E): bit 2v+pi is set when
+// hit(value of variant (beta^v x, pi)) holds, pi the prefix parity of the
+// compressed key or, for kExactY, the sign of y (pi = 0: +y, 1: -y); the
+// bit layout of vgen_tpu_torch.crypto.secp256k1.glv_bit_variant_keys.  0
+// where dx == 0 or b >= remaining[k].  kUnrollParity unrolls the parity
+// pair of the compressed-key formats (their prefix byte then folds into
+// the schedule; kernel E keeps the loop, to bound the code of two inlined
+// encoders).
+template <int kFmt, bool kUnrollParity, class Hit>
+VG_FN int32_t glv_lane(const uint32_t* bx, const uint32_t* by,
+                       const uint32_t* tx, const uint32_t* ty,
+                       const uint32_t* inv, const int32_t* remaining, long B,
+                       long N, long e, const Hit& hit) {
   const long k = e / B, b = e - k * B;
   if (b >= (long)remaining[k]) return 0;
-  uint32_t x[8], u[8];
-  if (!lane_add<false>(x, u, bx, by, tx, ty, inv, B, N, e)) return 0;
+  uint32_t x[8], y[8], u[8];
+  if (!lane_add<kExactY<kFmt>>(x, y, bx, by, tx, ty, inv, B, N, e)) return 0;
   // the variants' x-coordinates: x, beta x, beta^2 x = beta (beta x)
 #pragma unroll
   for (int i = 0; i < 8; i++) u[i] = BETA[i];
@@ -158,20 +189,52 @@ VG_FN int32_t range_glv_lane(const uint32_t* bx, const uint32_t* by,
 #pragma unroll 1
   for (int v = 0; v < 3; v++) {
     if (v > 0) fe_mul(x, x, u);
+    if constexpr (kExactY<kFmt>) {
+      // y, then -y; negating twice restores y for the next v
+#pragma unroll 1
+      for (int pi = 0; pi < 2; pi++) {
+        uint32_t h[5];
+        value_words<kFmt>(h, x, y, 0u);
+        if (hit(h)) mask |= 1 << (2 * v + pi);
+        fe_neg(y, y);
+      }
+    } else if constexpr (kUnrollParity) {
 #pragma unroll
-    for (int pi = 0; pi < 2; pi++) {
-      uint32_t st[8], h[5];
-      sha256_x33(st, x, 2u + pi);
-      ripemd160_sha_state(h, st);
-      if (in_intervals(h, lo, hi, n_slots)) mask |= 1 << (2 * v + pi);
+      for (int pi = 0; pi < 2; pi++) {
+        uint32_t h[5];
+        value_words<kFmt>(h, x, x, (uint32_t)pi);
+        if (hit(h)) mask |= 1 << (2 * v + pi);
+      }
+    } else {
+#pragma unroll 1
+      for (int pi = 0; pi < 2; pi++) {
+        uint32_t h[5];
+        value_words<kFmt>(h, x, x, (uint32_t)pi);
+        if (hit(h)) mask |= 1 << (2 * v + pi);
+      }
     }
   }
   return mask;
 }
 
-// Kernel C, lane e = k*B + b: the full affine add, then 1 when
-// hash160((2 + (y & 1)) || x) lies in an interval.  0 where dx == 0 or
-// b >= remaining[k].
+// Kernel B, lane e: glv_lane against the intervals.
+template <int kFmt>
+VG_FN int32_t range_glv_lane(const uint32_t* bx, const uint32_t* by,
+                             const uint32_t* tx, const uint32_t* ty,
+                             const uint32_t* inv, const uint32_t* lo,
+                             const uint32_t* hi, int n_slots,
+                             const int32_t* remaining, long B, long N,
+                             long e) {
+  return glv_lane<kFmt, true>(bx, by, tx, ty, inv, remaining, B, N, e,
+                              [&](const uint32_t h[5]) {
+                                return in_intervals(h, lo, hi, n_slots);
+                              });
+}
+
+// Kernel C, lane e = k*B + b: the full affine add, then 1 when the value of
+// format kFmt lies in an interval (the compressed prefix is 2 + (y & 1)).
+// 0 where dx == 0 or b >= remaining[k].
+template <int kFmt>
 VG_FN int32_t range_lane(const uint32_t* bx, const uint32_t* by,
                          const uint32_t* tx, const uint32_t* ty,
                          const uint32_t* inv, const uint32_t* lo,
@@ -179,16 +242,14 @@ VG_FN int32_t range_lane(const uint32_t* bx, const uint32_t* by,
                          const int32_t* remaining, long B, long N, long e) {
   const long k = e / B, b = e - k * B;
   if (b >= (long)remaining[k]) return 0;
-  uint32_t x[8], y[8], st[8], h[5];
+  uint32_t x[8], y[8], h[5];
   if (!lane_add<true>(x, y, bx, by, tx, ty, inv, B, N, e)) return 0;
-  sha256_x33(st, x, 2u + (y[0] & 1u));
-  ripemd160_sha_state(h, st);
+  value_words<kFmt>(h, x, y, y[0] & 1u);
   return in_intervals(h, lo, hi, n_slots) ? 1 : 0;
 }
 
-// Kernel D, lane e: the full affine add, hash160 of the compressed key, its
-// address symbols in format kFmt, the DFA walk -> 0/1.  0 where dx == 0 or
-// b >= remaining[k].
+// Kernel D, lane e: the full affine add, the value, its address symbols in
+// format kFmt, the DFA walk -> 0/1.  0 where dx == 0 or b >= remaining[k].
 template <int kFmt>
 VG_FN int32_t dfa_lane(const uint32_t* bx, const uint32_t* by,
                        const uint32_t* tx, const uint32_t* ty,
@@ -196,42 +257,22 @@ VG_FN int32_t dfa_lane(const uint32_t* bx, const uint32_t* by,
                        const int32_t* remaining, long B, long N, long e) {
   const long k = e / B, b = e - k * B;
   if (b >= (long)remaining[k]) return 0;
-  uint32_t x[8], y[8], st[8], h[5];
+  uint32_t x[8], y[8], h[5];
   if (!lane_add<true>(x, y, bx, by, tx, ty, inv, B, N, e)) return 0;
-  sha256_x33(st, x, 2u + (y[0] & 1u));
-  ripemd160_sha_state(h, st);
-  return h160_matches<kFmt>(dfa, h) ? 1 : 0;
+  value_words<kFmt>(h, x, y, y[0] & 1u);
+  return address_matches<kFmt>(dfa, h) ? 1 : 0;
 }
 
-// Kernel E, lane e: the x-only affine add, then for v in 0..2 and pi in
-// 0..1 the address of hash160((2+pi) || beta^v x) in format kFmt through
-// the DFA; bit 2v+pi is set on accept (the bit layout of kernel B and of
-// vgen_tpu.crypto.secp256k1.glv_bit_variant_keys(parity_exact=False)).
-// 0 where dx == 0 or b >= remaining[k].
+// Kernel E, lane e: glv_lane through the address symbols and the DFA.
 template <int kFmt>
 VG_FN int32_t glv_dfa_lane(const uint32_t* bx, const uint32_t* by,
                            const uint32_t* tx, const uint32_t* ty,
                            const uint32_t* inv, const Dfa& dfa,
                            const int32_t* remaining, long B, long N, long e) {
-  const long k = e / B, b = e - k * B;
-  if (b >= (long)remaining[k]) return 0;
-  uint32_t x[8], u[8];
-  if (!lane_add<false>(x, u, bx, by, tx, ty, inv, B, N, e)) return 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) u[i] = BETA[i];
-  int32_t mask = 0;
-#pragma unroll 1
-  for (int v = 0; v < 3; v++) {
-    if (v > 0) fe_mul(x, x, u);
-#pragma unroll 1
-    for (int pi = 0; pi < 2; pi++) {
-      uint32_t st[8], h[5];
-      sha256_x33(st, x, 2u + pi);
-      ripemd160_sha_state(h, st);
-      if (h160_matches<kFmt>(dfa, h)) mask |= 1 << (2 * v + pi);
-    }
-  }
-  return mask;
+  return glv_lane<kFmt, false>(bx, by, tx, ty, inv, remaining, B, N, e,
+                               [&](const uint32_t h[5]) {
+                                 return address_matches<kFmt>(dfa, h);
+                               });
 }
 
 }  // namespace vg

@@ -1,10 +1,12 @@
-// SHA-256 of a 33-byte compressed public key (parity || x big-endian),
-// with the message schedule built straight from 8 x 32-bit limbs.
-// The 64 rounds are unrolled; the constant schedule words (padding and
-// length) are folded by the compiler.
+// SHA-256 of a 33-byte compressed public key (parity || x big-endian) or a
+// 65-byte uncompressed one (04 || x || y), with the message schedule built
+// straight from 8 x 32-bit limbs, and the P2SH-P2WPKH script hash.  The 64
+// rounds are unrolled; the constant schedule words (padding and length) are
+// folded by the compiler.
 #pragma once
 
 #include "field.cuh"
+#include "ripemd160.cuh"
 
 namespace vg {
 
@@ -86,6 +88,44 @@ VG_FN void sha256_x33(uint32_t st[8], const uint32_t x[8], uint32_t parity) {
   w[15] = 264u;
   sha256_init(st);
   sha256_compress(st, w);
+}
+
+// st = SHA-256(04 || x || y big-endian): two compressions.  Block 1: word 0
+// is 0x04 and x's top three bytes, words 1..7 straddle x's limbs by 8 bits,
+// word 8 is x's last byte and y's top three, words 9..15 straddle y's
+// limbs.  Block 2: y's last byte, the 0x80 pad, the bit length 520.
+VG_FN void sha256_x65(uint32_t st[8], const uint32_t x[8], const uint32_t y[8]) {
+  uint32_t w[16];
+  w[0] = (0x04u << 24) | (x[7] >> 8);
+#pragma unroll
+  for (int i = 1; i < 8; i++) w[i] = (x[8 - i] << 24) | (x[7 - i] >> 8);
+  w[8] = (x[0] << 24) | (y[7] >> 8);
+#pragma unroll
+  for (int i = 1; i < 8; i++) w[8 + i] = (y[8 - i] << 24) | (y[7 - i] >> 8);
+  sha256_init(st);
+  sha256_compress(st, w);
+  w[0] = (y[0] << 24) | 0x00800000u;
+#pragma unroll
+  for (int i = 1; i < 15; i++) w[i] = 0u;
+  w[15] = 520u;
+  sha256_compress(st, w);
+}
+
+// out = hash160(00 14 || h), the P2SH-P2WPKH redeem script's hash of a key
+// hash h[5] (big-endian words): one compression of the 22-byte script (the
+// 0x80 pad at byte 22, bit length 176), then RIPEMD-160.  out may alias h.
+VG_FN void script_hash(uint32_t out[5], const uint32_t h[5]) {
+  uint32_t w[16], st[8];
+  w[0] = 0x00140000u | (h[0] >> 16);
+#pragma unroll
+  for (int i = 1; i < 5; i++) w[i] = (h[i - 1] << 16) | (h[i] >> 16);
+  w[5] = (h[4] << 16) | 0x8000u;
+#pragma unroll
+  for (int i = 6; i < 15; i++) w[i] = 0u;
+  w[15] = 176u;
+  sha256_init(st);
+  sha256_compress(st, w);
+  ripemd160_sha_state(out, st);
 }
 
 }  // namespace vg

@@ -1,10 +1,12 @@
-"""hash160 of a compressed public key from x limbs, and the address symbols
-of a hash160: Base58Check (P2PKH) and bech32 (P2WPKH) digit values in the
-format's alphabet, and the bech32m symbols of a P2TR output key: what the
-DFA walks (plain PyTorch versions of ``csrc/encode.cuh``; counterparts of
-``vgen_tpu/ops/encode.py``).
+"""The hashed values of the hash formats from limbs (hash160 of a
+compressed or uncompressed public key, the P2SH-P2WPKH script hash), and
+the address symbols the DFA walks, as digit values in the format's
+alphabet: Base58Check (P2PKH and uncompressed P2PKH with version 0,
+P2SH-P2WPKH with version 5), bech32 (P2WPKH), EIP-55 cased hex (Ethereum)
+and bech32m (P2TR) (plain PyTorch versions of ``csrc/encode.cuh``;
+counterparts of ``vgen_tpu/ops/encode.py``).
 
-Words and digits are int64 tensors; hash160s are 5 big-endian uint32
+Words and digits are int64 tensors; hashed values are 5 big-endian uint32
 words.  The reference's base-58 conversion is an f32 matmul against a
 digit basis, a TPU workaround; here it is long division of the 25-byte
 payload, 58^5 at a time, as on the card.
@@ -16,10 +18,11 @@ from typing import List, Tuple
 
 import torch
 
-from vgen_tpu_torch.ops import ripemd160, sha256
+from vgen_tpu_torch.ops import keccak, ripemd160, sha256
 
 M32 = 0xFFFFFFFF
-BASE58_SYMS = 34  # symbols of a version-0 Base58Check address, at most
+BASE58_SYMS = 34  # symbols of a Base58Check address (version 0 or 5), at most
+ETH_SYMS = 40  # hex digits of an Ethereum account after "0x"
 BECH32_SYMS = 39  # [witver] + 32 five-bit groups + 6 checksum symbols
 BECH32M_SYMS = 59  # [witver 1] + 52 five-bit groups + 6 checksum symbols
 BECH32M_CONST = 0x2BC830A3  # BIP350
@@ -34,6 +37,26 @@ def hash160_33_words_from_x(x: torch.Tensor, parity) -> List[torch.Tensor]:
     return ripemd160.ripemd160_sha_state_words(
         sha256.sha256_x33_state(x, parity)
     )
+
+
+def hash160_65_words_from_xy(x: torch.Tensor, y: torch.Tensor
+                             ) -> List[torch.Tensor]:
+    """5 big-endian words of hash160(04 || x_be || y_be), the uncompressed
+    key's hash, from (8, *S) int64 32-bit limbs."""
+    return ripemd160.ripemd160_sha_state_words(sha256.sha256_x65_state(x, y))
+
+
+def script_hash_words(h160w: List[torch.Tensor]) -> List[torch.Tensor]:
+    """5 big-endian words of hash160(00 14 || h160), the P2SH-P2WPKH
+    redeem script's hash: one SHA-256 compression of the 22-byte script
+    (pad 0x80 at byte 22, bit length 176), then RIPEMD-160."""
+    w = [0x00140000 | (h160w[0] >> 16)]
+    for i in range(1, 5):
+        w.append(((h160w[i - 1] & 0xFFFF) << 16) | (h160w[i] >> 16))
+    w.append(((h160w[4] & 0xFFFF) << 16) | 0x8000)
+    w += [0] * 9 + [176]
+    iv = [torch.full_like(h160w[0], v) for v in sha256.IV]
+    return ripemd160.ripemd160_sha_state_words(sha256.compress(iv, w))
 
 
 def base58check_checksum_word(version: int, h160w: List[torch.Tensor]):
@@ -83,13 +106,31 @@ def base58check_symbols(version: int, h160w: List[torch.Tensor]
         for _ in range(5):
             digits.append(rem % 58)
             rem = rem // 58
-    msd = digits[BASE58_SYMS - 1::-1]  # the 35th digit is 0 for version 0
+    # the 35th digit is 0: the payload is below 6 * 2^192 < 58^34 for
+    # versions 0 and 5
+    msd = digits[BASE58_SYMS - 1::-1]
     shift = _leading_zeros(msd) - _leading_zeros(payload_bytes)
     ext = torch.stack(msd + [torch.zeros_like(msd[0])] * BASE58_SYMS)
     pos = torch.arange(BASE58_SYMS, device=ext.device).reshape(
         (BASE58_SYMS,) + (1,) * shift.dim())
     syms = torch.gather(ext, 0, pos + shift.unsqueeze(0))
     return syms, BASE58_SYMS - shift
+
+
+def eth_symbols(acct: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EIP-55 symbols of an Ethereum account after "0x" -> (syms (40, *S)
+    int64, length (*S,) = 40), from its 5 big-endian words: nibble i
+    (most significant first) is 0-9 -> 0..9, a-f -> 10..15, and A-F ->
+    16..21 where nibble i of keccak256 of the 40 lowercase-hex ASCII bytes
+    is 8 or more (``vgen_tpu/ops/encode.py`` ``eth_symbols``)."""
+    nib = [(acct[i // 8] >> (28 - 4 * (i % 8))) & 0xF for i in range(ETH_SYMS)]
+    ascii_lower = [n + 48 + torch.where(n >= 10, 39, 0) for n in nib]
+    digest = keccak.keccak256_hex40_bytes(ascii_lower)
+    syms = []
+    for i, n in enumerate(nib):
+        cs = (digest[i // 2] >> (4 if i % 2 == 0 else 0)) & 0xF
+        syms.append(torch.where((n >= 10) & (cs >= 8), n + 6, n))
+    return torch.stack(syms), torch.full_like(nib[0], ETH_SYMS)
 
 
 def polymod_init(hrp: str, witver: int) -> int:

@@ -5,15 +5,22 @@ One super-step covers K windows of B keys.  Window k adds its base point
 
 1. kernel A, ``batch_inverse_dx``: canonical inverses of dx = tx[b] - bx[k]
    for all K*B lanes, one Montgomery batch inversion;
-2. one match kernel over all K*B lanes:
-   - B, ``range_glv_match``: x-only finish, x * beta^v, six hash160s,
+2. one match kernel over all K*B lanes, for the format ``fmt`` (one of the
+   five hash formats, each hashing the point into 5 big-endian "value"
+   words: hash160 of the compressed key, of its P2SH-P2WPKH redeem script,
+   of the uncompressed key, or the Ethereum account):
+   - B, ``range_glv_match``: the finish, x * beta^v, six variants' values,
      interval compare -> a 6-bit GLV variant mask (random interval scans);
-   - C, ``range_match``: full finish, one hash160 with the prefix of y's
-     parity, interval compare -> 0/1 (range interval scans);
-   - D, ``dfa_match``: full finish, hash160, address symbols, DFA walk ->
+   - C, ``range_match``: full finish, one value, interval compare -> 0/1
+     (range interval scans);
+   - D, ``dfa_match``: full finish, the value, address symbols, DFA walk ->
      0/1 (range scans of any other regex);
-   - E, ``glv_dfa_match``: x-only finish, the six variants through symbols
-     and the DFA -> a 6-bit mask (random scans of any other regex);
+   - E, ``glv_dfa_match``: the finish, the six variants through symbols and
+     the DFA -> a 6-bit mask (random scans of any other regex).
+   The compressed-key formats' variants are the two prefix parities of
+   each beta^v x (x-only finish); the GLV_EXACT_Y formats (uncompressed,
+   Ethereum) hash (beta^v x, +-y) (full finish).  All five formats' instances
+   live in ``csrc/kernels.cu``;
 3. ``pack_tail`` (PyTorch ops): one (K, 34) int32 row per window,
    [count, ops, 16 highest matching indices, their masks].
 
@@ -46,16 +53,20 @@ import torch
 from vgen_tpu_torch.crypto.address import AddressFormat
 from vgen_tpu_torch.ops import curve, encode, field, pipeline, sha256, u256
 
-# Formats whose device-checked value is hash160 of the compressed public
-# key (P2WPKH hashes exactly what P2PKH hashes): kernels B to E serve these.
-HASH160_FORMATS = (AddressFormat.P2PKH, AddressFormat.P2WPKH)
+# The formats kernels B to E serve, each hashing the point into a 5-word
+# value (P2WPKH hashes exactly what P2PKH hashes), with the kernels' format
+# argument (csrc/dfa.cuh kFmtP2PKH ... kFmtEthereum)
+FMT_CODE = {
+    AddressFormat.P2PKH: 0,
+    AddressFormat.P2WPKH: 1,
+    AddressFormat.P2SH_P2WPKH: 2,
+    AddressFormat.P2PKH_UNCOMPRESSED: 3,
+    AddressFormat.ETHEREUM: 4,
+}
 # ... and P2TR, through kernels F to I: the formats the port scans on a device
-DEVICE_FORMATS = HASH160_FORMATS + (AddressFormat.P2TR,)
+DEVICE_FORMATS = tuple(FMT_CODE) + (AddressFormat.P2TR,)
 
 GLV_KEYS = 6  # keys checked per table position: {+-k, +-lk, +-l^2 k}
-
-# the DFA kernels' format argument (csrc/dfa.cuh kFmtP2PKH, kFmtP2WPKH)
-_DFA_FMT_CODE = {AddressFormat.P2PKH: 0, AddressFormat.P2WPKH: 1}
 
 # elements per thread chain in kernel A (the largest power of two <= this
 # that divides K*B)
@@ -147,7 +158,7 @@ batch_inverse_dx.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Kernel B: x-only finish + six hash160s + interval compare
+# Kernels B and C: the value(s) of each lane against the intervals
 # ---------------------------------------------------------------------------
 
 
@@ -168,16 +179,42 @@ def _in_window(remaining, K: int, B: int) -> torch.Tensor:
     return b_idx < remaining.to(torch.int64).reshape(K, 1)
 
 
-def range_glv_match_plain(bx, by, tx, ty, inv, lo, hi, remaining):
-    """Plain version of kernel B.  bx, by (K, 8); tx, ty (8, B);
-    inv (8, K*B); lo, hi (n_slots, 5); remaining (K,); all int32 ->
-    (K, B) int32 mask, bit 2v+pi set when hash160((2+pi) || beta^v x)
-    lies in an interval; 0 where dx == 0 or b >= remaining[k]."""
+def _full_finish(bx, by, tx, ty, inv, remaining):
+    """(x3, y3, valid) of the full finish (kernels C and D); valid masks
+    dx == 0 and b >= remaining[k]."""
+    K, B = bx.shape[0], tx.shape[1]
+    x3, y3, valid = curve.ec_finish(*_lanes(bx, by, tx, ty, inv))
+    return x3, y3, valid & _in_window(remaining, K, B)
+
+
+def _glv_finish(fmt, bx, by, tx, ty, inv, remaining):
+    """(x3, y3, valid) for kernels B and E: the full finish for the
+    GLV_EXACT_Y formats, the x-only one (y3 None) for the others."""
+    if fmt in pipeline.GLV_EXACT_Y:
+        return _full_finish(bx, by, tx, ty, inv, remaining)
     K, B = bx.shape[0], tx.shape[1]
     x3, valid = curve.ec_finish_x(*_lanes(bx, by, tx, ty, inv))
-    valid = valid & _in_window(remaining, K, B)
-    mask = pipeline.glv_interval_mask(x3, u256.to_i64(lo), u256.to_i64(hi))
+    return x3, None, valid & _in_window(remaining, K, B)
+
+
+def range_glv_match_plain(fmt, bx, by, tx, ty, inv, lo, hi, remaining):
+    """Plain version of kernel B.  bx, by (K, 8); tx, ty (8, B);
+    inv (8, K*B); lo, hi (n_slots, 5); remaining (K,); all int32 ->
+    (K, B) int32 mask, bit 2v+pi set when the value of variant (beta^v x,
+    pi) lies in an interval (``pipeline.glv_interval_mask``); 0 where
+    dx == 0 or b >= remaining[k]."""
+    x3, y3, valid = _glv_finish(fmt, bx, by, tx, ty, inv, remaining)
+    mask = pipeline.glv_interval_mask(fmt, x3, y3, u256.to_i64(lo),
+                                      u256.to_i64(hi))
     return torch.where(valid, mask, 0).to(torch.int32)
+
+
+def _match_code(name: str, fmt) -> int:
+    if fmt not in FMT_CODE:
+        check_format(fmt)
+        raise ValueError(f"{name}: kernels B to E serve the hash formats; "
+                         f"{fmt.value} scans through kernels F to I")
+    return FMT_CODE[fmt]
 
 
 def _interval_specs(name, bx, by, tx, ty, inv, lo, hi, remaining):
@@ -192,26 +229,28 @@ def _interval_specs(name, bx, by, tx, ty, inv, lo, hi, remaining):
     ])
 
 
-def _launch_interval(entry: str, args):
+def _launch_interval(entry: str, fmt, args):
     """Launch kernel B or C (same C signature) -> (K, B) int32."""
+    code = _match_code(entry, fmt)
     bx, by, tx, ty, inv, lo, hi, remaining = args
     K, B, S = bx.shape[0], tx.shape[1], lo.shape[0]
     dev = _interval_specs(entry, *args)
     out = torch.empty((K, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _launch("kernels", entry, bx.data_ptr(), by.data_ptr(), tx.data_ptr(),
-                ty.data_ptr(), inv.data_ptr(), lo.data_ptr(), hi.data_ptr(), S,
-                remaining.data_ptr(), out.data_ptr(), K, B, _stream(dev))
+        _launch("kernels", entry, code, bx.data_ptr(), by.data_ptr(),
+                tx.data_ptr(), ty.data_ptr(), inv.data_ptr(), lo.data_ptr(),
+                hi.data_ptr(), S, remaining.data_ptr(), out.data_ptr(), K, B,
+                _stream(dev))
     return out
 
 
-def range_glv_match(bx, by, tx, ty, inv, lo, hi, remaining):
-    """Kernel B (``csrc/kernels.cu``): same contract as
-    ``range_glv_match_plain``, one launch for all K*B lanes."""
+def range_glv_match(fmt, bx, by, tx, ty, inv, lo, hi, remaining):
+    """Kernel B (``csrc/kernels.cu``): same contract
+    as ``range_glv_match_plain``, one launch for all K*B lanes."""
     args = (bx, by, tx, ty, inv, lo, hi, remaining)
     if _all_cpu(*args):
-        return range_glv_match_plain(*args)
-    out = _launch_interval("range_glv_match", args)
+        return range_glv_match_plain(fmt, *args)
+    out = _launch_interval("range_glv_match", fmt, args)
     range_glv_match.launches += 1
     return out
 
@@ -219,30 +258,23 @@ def range_glv_match(bx, by, tx, ty, inv, lo, hi, remaining):
 range_glv_match.launches = 0
 
 
-# ---------------------------------------------------------------------------
-# Kernel C: full finish + one hash160 + interval compare
-# ---------------------------------------------------------------------------
-
-
-def range_match_plain(bx, by, tx, ty, inv, lo, hi, remaining):
+def range_match_plain(fmt, bx, by, tx, ty, inv, lo, hi, remaining):
     """Plain version of kernel C.  Same inputs as kernel B -> (K, B) int32,
-    1 where hash160((2 + (y & 1)) || x) of B + T lies in an interval, else
-    0; 0 where dx == 0 or b >= remaining[k]."""
-    K, B = bx.shape[0], tx.shape[1]
-    x3, y3, valid = curve.ec_finish(*_lanes(bx, by, tx, ty, inv))
-    valid = valid & _in_window(remaining, K, B)
-    hit = pipeline.in_intervals(pipeline.hash160_words(x3, y3),
+    1 where the value of B + T (``pipeline.interval_value_words``) lies in
+    an interval, else 0; 0 where dx == 0 or b >= remaining[k]."""
+    x3, y3, valid = _full_finish(bx, by, tx, ty, inv, remaining)
+    hit = pipeline.in_intervals(pipeline.interval_value_words(fmt, x3, y3),
                                 u256.to_i64(lo), u256.to_i64(hi))
     return (hit & valid).to(torch.int32)
 
 
-def range_match(bx, by, tx, ty, inv, lo, hi, remaining):
-    """Kernel C (``csrc/kernels.cu``): same contract as
-    ``range_match_plain``, one launch for all K*B lanes."""
+def range_match(fmt, bx, by, tx, ty, inv, lo, hi, remaining):
+    """Kernel C (``csrc/kernels.cu``): same contract
+    as ``range_match_plain``, one launch for all K*B lanes."""
     args = (bx, by, tx, ty, inv, lo, hi, remaining)
     if _all_cpu(*args):
-        return range_match_plain(*args)
-    out = _launch_interval("range_match", args)
+        return range_match_plain(fmt, *args)
+    out = _launch_interval("range_match", fmt, args)
     range_match.launches += 1
     return out
 
@@ -262,10 +294,8 @@ def dfa_match_plain(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
     ``DeviceDFA`` for ``fmt``); start int; remaining (K,) -> (K, B) int32,
     1 where the address of B + T is accepted; 0 where dx == 0 or
     b >= remaining[k]."""
-    K, B = bx.shape[0], tx.shape[1]
-    x3, y3, valid = curve.ec_finish(*_lanes(bx, by, tx, ty, inv))
-    valid = valid & _in_window(remaining, K, B)
-    hit = pipeline.dfa_matches(fmt, pipeline.hash160_words(x3, y3),
+    x3, y3, valid = _full_finish(bx, by, tx, ty, inv, remaining)
+    hit = pipeline.dfa_matches(fmt, pipeline.interval_value_words(fmt, x3, y3),
                                dfa_table, dfa_accept, start)
     return (hit & valid).to(torch.int32)
 
@@ -273,23 +303,18 @@ def dfa_match_plain(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
 def glv_dfa_match_plain(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept,
                         start, remaining):
     """Plain version of kernel E.  Same inputs as kernel D -> (K, B) int32
-    6-bit masks, bit 2v+pi set when the address of
-    hash160((2+pi) || beta^v x) is accepted; 0 where dx == 0 or
+    6-bit masks, bit 2v+pi set when the address of variant (beta^v x, pi)
+    is accepted (the bit layout of kernel B); 0 where dx == 0 or
     b >= remaining[k]."""
-    K, B = bx.shape[0], tx.shape[1]
-    x3, valid = curve.ec_finish_x(*_lanes(bx, by, tx, ty, inv))
-    valid = valid & _in_window(remaining, K, B)
-    mask = pipeline.glv_dfa_mask(fmt, x3, dfa_table, dfa_accept, start)
+    x3, y3, valid = _glv_finish(fmt, bx, by, tx, ty, inv, remaining)
+    mask = pipeline.glv_dfa_mask(fmt, x3, y3, dfa_table, dfa_accept, start)
     return torch.where(valid, mask, 0).to(torch.int32)
 
 
 def _launch_dfa(entry: str, fmt, args):
     """Check the DFA kernels' inputs and launch kernel D or E."""
+    code = _match_code(entry, fmt)
     bx, by, tx, ty, inv, dfa_table, dfa_accept, start, remaining = args
-    if fmt not in _DFA_FMT_CODE:
-        check_format(fmt)  # raises for the formats still to port
-        raise ValueError(f"{entry}: kernels D and E serve the hash160 "
-                         f"formats; {fmt.value} scans through kernels F to I")
     K, B = bx.shape[0], tx.shape[1]
     S, W = dfa_table.shape
     if W != pipeline.FORMAT_DFA_WIDTH[fmt]:
@@ -305,17 +330,18 @@ def _launch_dfa(entry: str, fmt, args):
     ])
     out = torch.empty((K, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _launch("kernels", entry, bx.data_ptr(), by.data_ptr(), tx.data_ptr(),
-                ty.data_ptr(), inv.data_ptr(), dfa_table.data_ptr(),
-                dfa_accept.data_ptr(), W, int(start), _DFA_FMT_CODE[fmt],
-                remaining.data_ptr(), out.data_ptr(), K, B, _stream(dev))
+        _launch("kernels", entry, bx.data_ptr(), by.data_ptr(),
+                tx.data_ptr(), ty.data_ptr(), inv.data_ptr(),
+                dfa_table.data_ptr(), dfa_accept.data_ptr(), W, int(start),
+                code, remaining.data_ptr(), out.data_ptr(), K, B,
+                _stream(dev))
     return out
 
 
 def dfa_match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
               remaining):
-    """Kernel D (``csrc/kernels.cu``): same contract as
-    ``dfa_match_plain``, one launch for all K*B lanes."""
+    """Kernel D (``csrc/kernels.cu``): same contract
+    as ``dfa_match_plain``, one launch for all K*B lanes."""
     args = (bx, by, tx, ty, inv, dfa_table, dfa_accept, start, remaining)
     tensors = args[:7] + args[8:]
     if _all_cpu(*tensors):
@@ -330,8 +356,8 @@ dfa_match.launches = 0
 
 def glv_dfa_match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
                   remaining):
-    """Kernel E (``csrc/kernels.cu``): same contract as
-    ``glv_dfa_match_plain``, one launch for all K*B lanes."""
+    """Kernel E (``csrc/kernels.cu``): same contract
+    as ``glv_dfa_match_plain``, one launch for all K*B lanes."""
     args = (bx, by, tx, ty, inv, dfa_table, dfa_accept, start, remaining)
     tensors = args[:7] + args[8:]
     if _all_cpu(*tensors):
@@ -369,13 +395,12 @@ def pack_tail(mask: torch.Tensor, remaining: torch.Tensor,
                      dim=1).to(torch.int32)
 
 
-def check_format(fmt: AddressFormat) -> None:
+def check_format(fmt) -> None:
+    """Raise for anything that is not an address format the kernels scan
+    (all six are)."""
     if fmt not in DEVICE_FORMATS:
-        raise NotImplementedError(
-            f"{fmt.value}: the port's scan kernels cover "
-            f"{', '.join(f.value for f in DEVICE_FORMATS)} (P2SH-P2WPKH, "
-            "uncompressed P2PKH and Ethereum: ROADMAP queue 1 item 10)"
-        )
+        raise ValueError(f"{fmt!r}: the port's scan kernels cover "
+                         f"{', '.join(f.value for f in DEVICE_FORMATS)}")
 
 
 def _keys_per_position(fmt: AddressFormat, glv: bool) -> int:
@@ -389,7 +414,7 @@ def _range_mask(fmt, bx, by, tx, ty, lo, hi, remaining, glv, wt):
                                           wt)
     inv = batch_inverse_dx(bx, tx)
     match = range_glv_match if glv else range_match
-    return match(bx, by, tx, ty, inv, lo, hi, remaining)
+    return match(fmt, bx, by, tx, ty, inv, lo, hi, remaining)
 
 
 def _dfa_mask(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start, remaining,

@@ -16,27 +16,33 @@ import torch
 
 from vgen_tpu_torch.crypto import secp256k1 as ec
 from vgen_tpu_torch.crypto.address import AddressFormat
-from vgen_tpu_torch.ops import encode, field, u256
+from vgen_tpu_torch.ops import encode, field, keccak, u256
 
 TOP_K = 16  # index slots per window in a packed row
 PACKED_WIDTH = 2 + 2 * TOP_K  # [count, ops, idx x16, vbits x16]
 MAX_INTERVALS = 8  # comparator slots
 
-# DFA width (digits + EOS + PAD) of the formats the DFA kernels serve
-# (``FORMAT_DFA_WIDTH``)
+# DFA width (digits + EOS + PAD) per format (``FORMAT_DFA_WIDTH``)
 FORMAT_DFA_WIDTH = {
     AddressFormat.P2PKH: 60,
+    AddressFormat.P2PKH_UNCOMPRESSED: 60,
+    AddressFormat.P2SH_P2WPKH: 60,
     AddressFormat.P2WPKH: 34,
     AddressFormat.P2TR: 34,
+    AddressFormat.ETHEREUM: 24,
 }
 
 # big-endian 32-bit words of the value the interval route compares
-# (``INTERVAL_WORDS``): hash160 for P2PKH and P2WPKH, the output key's x
-# for P2TR
+# (``INTERVAL_WORDS``): hash160 of the key (P2PKH, P2WPKH, uncompressed), of
+# the redeem script (P2SH-P2WPKH), the account (Ethereum), the output key's
+# x (P2TR)
 INTERVAL_WORDS = {
     AddressFormat.P2PKH: 5,
+    AddressFormat.P2PKH_UNCOMPRESSED: 5,
+    AddressFormat.P2SH_P2WPKH: 5,
     AddressFormat.P2WPKH: 5,
     AddressFormat.P2TR: 8,
+    AddressFormat.ETHEREUM: 5,
 }
 
 GLV_FORMATS = (
@@ -44,6 +50,16 @@ GLV_FORMATS = (
     AddressFormat.P2PKH_UNCOMPRESSED,
     AddressFormat.P2WPKH,
     AddressFormat.P2SH_P2WPKH,
+    AddressFormat.ETHEREUM,
+)
+
+# GLV formats whose hashed value covers y (``GLV_EXACT_Y``): the kernels run
+# the full finish, and bit 2v+pi of a GLV mask is the point (beta^v x, +y)
+# for pi = 0 and (beta^v x, -y) for pi = 1, so the host resolves each bit to
+# one key (``glv_bit_variant_keys(parity_exact=True)``).  The other GLV
+# formats hash the compressed key, whose +- pair is the two prefix parities.
+GLV_EXACT_Y = (
+    AddressFormat.P2PKH_UNCOMPRESSED,
     AddressFormat.ETHEREUM,
 )
 
@@ -86,26 +102,29 @@ def in_intervals(words: List[torch.Tensor], lo: torch.Tensor,
     return matched
 
 
-def _glv_mask(x3: torch.Tensor, hit) -> torch.Tensor:
-    """6-bit GLV variant mask: bit 2v+pi is set when ``hit`` holds for
-    hash160((2+pi) || beta^v * x).  The x-coordinates {x, beta x, beta^2 x}
-    carry the six keys {±k, ±λk, ±λ²k}; the ± pair is the two prefix
-    parities, so y is never needed."""
+def _glv_mask(fmt: AddressFormat, x3: torch.Tensor, y3, hit) -> torch.Tensor:
+    """6-bit GLV variant mask: bit 2v+pi is set when ``hit`` holds for the
+    value words of variant (beta^v x, pi).  The x-coordinates {x, beta x,
+    beta^2 x} carry the six keys {+-k, +-lk, +-l^2 k}; pi is the prefix
+    parity 2 + pi of the compressed key (y unused, pass None), or for the
+    GLV_EXACT_Y formats the sign of y (pi = 0: y3, pi = 1: -y3)."""
     xs = (x3, field.mul(x3, u256.constant(ec.BETA, x3)),
           field.mul(x3, u256.constant(ec.BETA2, x3)))
+    ys = (y3, field.neg(y3)) if fmt in GLV_EXACT_Y else (None, None)
     mask = torch.zeros(x3.shape[1:], dtype=torch.int64, device=x3.device)
     for v, xv in enumerate(xs):
         for pi in range(2):
-            m = hit(encode.hash160_33_words_from_x(xv, 2 + pi))
+            m = hit(variant_value_words(fmt, xv, ys[pi], pi))
             mask = mask | (m.to(torch.int64) << (2 * v + pi))
     return mask
 
 
-def glv_interval_mask(x3: torch.Tensor, lo: torch.Tensor,
-                      hi: torch.Tensor) -> torch.Tensor:
-    """GLV variant mask of the compressed-hash160 formats: the hash160 lies
-    in an interval."""
-    return _glv_mask(x3, lambda h160w: in_intervals(h160w, lo, hi))
+def glv_interval_mask(fmt: AddressFormat, x3: torch.Tensor, y3,
+                      lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """GLV variant mask of the interval route (``glv_interval_mask``): the
+    variant's value lies in an interval.  y3 (canonical) only for the
+    GLV_EXACT_Y formats."""
+    return _glv_mask(fmt, x3, y3, lambda w: in_intervals(w, lo, hi))
 
 
 def top_k_match_indices(scores: torch.Tensor) -> torch.Tensor:
@@ -121,20 +140,51 @@ def x_words(x: torch.Tensor) -> List[torch.Tensor]:
     return [x[7 - i] for i in range(8)]
 
 
-def hash160_words(x3: torch.Tensor, y3: torch.Tensor) -> List[torch.Tensor]:
-    """The interval value of P2PKH and P2WPKH: hash160 of the compressed
-    key, prefix 2 + (y & 1), as 5 big-endian words
-    (``interval_value_words``).  y3 must be canonical."""
-    return encode.hash160_33_words_from_x(x3, 2 + (y3[0] & 1))
+def _compressed_value(fmt: AddressFormat, x: torch.Tensor, parity):
+    """The value of a compressed-key format: hash160(parity || x), and for
+    P2SH-P2WPKH the hash160 of its redeem script 00 14 || hash160."""
+    h = encode.hash160_33_words_from_x(x, parity)
+    return encode.script_hash_words(h) if fmt == AddressFormat.P2SH_P2WPKH else h
 
 
-def address_symbols(fmt: AddressFormat, h160w: List[torch.Tensor]):
-    """(syms (T, *S), length (*S,)) of the address of a hash160:
-    Base58Check for P2PKH, bech32 after "bc1" for P2WPKH."""
-    if fmt == AddressFormat.P2PKH:
-        return encode.base58check_symbols(0, h160w)
+def interval_value_words(fmt: AddressFormat, x3: torch.Tensor,
+                         y3: torch.Tensor) -> List[torch.Tensor]:
+    """The value a hash format's interval route compares, as 5 big-endian
+    words, for the point (x3, y3) (canonical (8, *S) limbs): hash160 of the
+    compressed key (P2PKH, P2WPKH), of its redeem script (P2SH-P2WPKH),
+    hash160 of 04 || x || y (uncompressed P2PKH), or the Ethereum account
+    (``interval_value_words``)."""
+    if fmt == AddressFormat.P2PKH_UNCOMPRESSED:
+        return encode.hash160_65_words_from_xy(x3, y3)
+    if fmt == AddressFormat.ETHEREUM:
+        return keccak.eth_account_words_from_xy(x3, y3)
+    if fmt in (AddressFormat.P2PKH, AddressFormat.P2WPKH,
+               AddressFormat.P2SH_P2WPKH):
+        return _compressed_value(fmt, x3, 2 + (y3[0] & 1))
+    raise ValueError(f"no hashed value for {fmt.value}")
+
+
+def variant_value_words(fmt: AddressFormat, xv: torch.Tensor, yv,
+                        pi: int) -> List[torch.Tensor]:
+    """The value words of GLV variant (xv, pi): the compressed key with
+    prefix 2 + pi, or for the GLV_EXACT_Y formats the point (xv, yv)."""
+    if fmt in GLV_EXACT_Y:
+        return interval_value_words(fmt, xv, yv)
+    return _compressed_value(fmt, xv, 2 + pi)
+
+
+def address_symbols(fmt: AddressFormat, words: List[torch.Tensor]):
+    """(syms (T, *S), length (*S,)) of the address of a value: Base58Check
+    with version 0 (P2PKH, uncompressed) or 5 (P2SH-P2WPKH), bech32 after
+    "bc1" (P2WPKH), EIP-55 hex after "0x" (Ethereum)."""
+    if fmt in (AddressFormat.P2PKH, AddressFormat.P2PKH_UNCOMPRESSED):
+        return encode.base58check_symbols(0, words)
+    if fmt == AddressFormat.P2SH_P2WPKH:
+        return encode.base58check_symbols(5, words)
     if fmt == AddressFormat.P2WPKH:
-        return encode.bech32_p2wpkh_symbols(h160w)
+        return encode.bech32_p2wpkh_symbols(words)
+    if fmt == AddressFormat.ETHEREUM:
+        return encode.eth_symbols(words)
     raise ValueError(f"no address symbols for {fmt.value}")
 
 
@@ -155,17 +205,18 @@ def dfa_walk(table: torch.Tensor, accept: torch.Tensor, start: int,
     return accept.to(torch.int64)[state] != 0
 
 
-def dfa_matches(fmt: AddressFormat, h160w: List[torch.Tensor],
+def dfa_matches(fmt: AddressFormat, words: List[torch.Tensor],
                 table: torch.Tensor, accept: torch.Tensor,
                 start: int) -> torch.Tensor:
-    """Whether the address of each hash160 is accepted by the DFA."""
-    syms, length = address_symbols(fmt, h160w)
+    """Whether the address of each value (5 big-endian words) is accepted
+    by the DFA."""
+    syms, length = address_symbols(fmt, words)
     return dfa_walk(table, accept, start, syms, length)
 
 
-def glv_dfa_mask(fmt: AddressFormat, x3: torch.Tensor, table: torch.Tensor,
+def glv_dfa_mask(fmt: AddressFormat, x3: torch.Tensor, y3, table: torch.Tensor,
                  accept: torch.Tensor, start: int) -> torch.Tensor:
-    """GLV variant mask for the DFA: the address of the hash160 is accepted
-    (the bit layout of ``glv_interval_mask`` and ``glv_variant_symbols``)."""
+    """GLV variant mask for the DFA: the variant's address is accepted (the
+    bit layout of ``glv_interval_mask`` and ``glv_variant_symbols``)."""
     return _glv_mask(
-        x3, lambda h160w: dfa_matches(fmt, h160w, table, accept, start))
+        fmt, x3, y3, lambda w: dfa_matches(fmt, w, table, accept, start))

@@ -1,6 +1,6 @@
-"""SHA-256 of a compressed public key built straight from 32-bit limbs,
-and the BIP340 tagged hash of a 32-byte value (plain PyTorch versions of
-``csrc/sha256.cuh``).
+"""SHA-256 of a compressed or uncompressed public key built straight from
+32-bit limbs, and the BIP340 tagged hash of a 32-byte value (plain PyTorch
+versions of ``csrc/sha256.cuh``).
 
 Words are int64 tensors holding uint32 values; every sum is masked with
 ``& 0xFFFFFFFF``.  No partial evaluation: the CUDA compiler folds the
@@ -80,6 +80,23 @@ def sha256_x33_state(x: torch.Tensor, parity) -> List[torch.Tensor]:
     like = x[0]
     return compress([torch.full_like(like, v) for v in IV],
                     x33_schedule_words(x, parity))
+
+
+def sha256_x65_state(x: torch.Tensor, y: torch.Tensor) -> List[torch.Tensor]:
+    """The 8 state words of the 65-byte uncompressed public key
+    04 || x || y (big-endian), two compressions, from (8, *S) 32-bit limbs.
+
+    Block 1: word 0 is 0x04 and x's top three bytes, words 1..7 straddle
+    x's limbs by 8 bits, word 8 is x's last byte and y's top three, words
+    9..15 straddle y's limbs.  Block 2: y's last byte, the 0x80 pad and the
+    bit length 520."""
+    w = [((0x04 << 24) | (x[7] >> 8)) & M32]
+    w += [((x[8 - i] << 24) | (x[7 - i] >> 8)) & M32 for i in range(1, 8)]
+    w.append(((x[0] << 24) | (y[7] >> 8)) & M32)
+    w += [((y[8 - i] << 24) | (y[7 - i] >> 8)) & M32 for i in range(1, 8)]
+    st = compress([torch.full_like(x[0], v) for v in IV], w)
+    w2 = [((y[0] & 0xFF) << 24) | 0x00800000] + [0] * 14 + [520]
+    return compress(st, w2)
 
 
 def tagged_midstate(tag: str) -> Tuple[int, ...]:

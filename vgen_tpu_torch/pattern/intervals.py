@@ -175,7 +175,8 @@ def _eth_intervals(prefix: str) -> Optional[List[Interval]]:
     EIP-55 casing depends on a hash of the whole address, so letter case is
     NOT resolvable per-position; the interval ignores case (an
     over-approximation) and the host-side regex filters the casing.  This
-    keeps soundness: every correctly-cased match falls in the interval.
+    keeps soundness: every correctly-cased match falls in the interval, and
+    ``exact_match_intervals`` does not take such intervals as exact.
     """
     full = [(0, (1 << 160) - 1)]
     if len(prefix) <= 2:
@@ -360,3 +361,17 @@ def match_intervals(
     if ivs is None or len(ivs) > MAX_INTERVALS:
         return None
     return tuple(ivs)
+
+
+def exact_match_intervals(
+    fmt: AddressFormat, pattern: str, case_insensitive: bool
+) -> Optional[Tuple[Interval, ...]]:
+    """``match_intervals`` when a value inside them is a match of the whole
+    pattern, else None.  The one exception is Ethereum: a case-sensitive
+    prefix with a letter a-f after "0x" compiles to case-ignoring intervals
+    (``_eth_intervals``), a prefilter whose hits the host regex checks."""
+    ivs = match_intervals(fmt, pattern, case_insensitive)
+    if ivs is not None and fmt == AddressFormat.ETHEREUM and not case_insensitive:
+        if any(c in "abcdefABCDEF" for c in literal_prefix(pattern)[2:]):
+            return None
+    return ivs

@@ -133,6 +133,15 @@ class Pattern:
 
         return match_intervals(fmt, self._original, self._case_insensitive)
 
+    def exact_match_intervals(self, fmt: AddressFormat):
+        """``match_intervals`` when a value inside them is a match of the
+        whole pattern, else None (see
+        pattern.intervals.exact_match_intervals)."""
+        from vgen_tpu_torch.pattern.intervals import exact_match_intervals
+
+        return exact_match_intervals(fmt, self._original,
+                                     self._case_insensitive)
+
     def prefilter_intervals(self, fmt: AddressFormat):
         """Interval over-approximation via the longest compilable anchored
         prefix (see pattern.intervals.prefilter_intervals): (intervals,

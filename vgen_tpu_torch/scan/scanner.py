@@ -1,22 +1,21 @@
 """Device scan loop: random and range scans, interval and DFA routes.
 
-The counterpart of ``vgen_tpu/scan/scanner.py`` ``DeviceScanner`` for the
-hash160 formats (P2PKH, P2WPKH) and P2TR.  A pattern that compiles to
-intervals of the format's value (hash160, or the P2TR output key's x: an
-anchored literal, or a selective literal prefix whose survivors the host
-checks against the full regex) takes the interval step; any other regex
-takes the DFA step.  Random scans of the hash160 formats check six GLV keys
-per table position; P2TR checks one (the tweak rebinds the key).  Range
-scans (``config.start`` set) check each key of [start, end] once, report
-matches in key order, and keep a checkpoint when ``config.checkpoint`` is
-set.
+The counterpart of ``vgen_tpu/scan/scanner.py`` ``DeviceScanner`` for all
+six address formats.  A pattern that compiles to intervals of the format's
+value (a hash160, the P2SH-P2WPKH script hash, the Ethereum account, or the
+P2TR output key's x: an anchored literal, or a selective literal prefix
+whose survivors the host checks against the full regex) takes the interval
+step; any other regex takes the DFA step.  Random scans of the hash formats
+check six GLV keys per table position; P2TR checks one (the tweak rebinds
+the key).  Range scans (``config.start`` set) check each key of
+[start, end] once, report matches in key order, and keep a checkpoint when
+``config.checkpoint`` is set.
 
 The host computes one base point per window, keeps a few super-steps in
 flight (each packed result is copied into pinned host memory behind a CUDA
 event), and re-derives every reported key with the native code before it
 counts as a match.  A device failure raises: nothing falls back to the CPU
-scanner, and other formats raise ``NotImplementedError`` naming their
-ROADMAP item.
+scanner.
 """
 
 from __future__ import annotations
@@ -125,7 +124,8 @@ class DeviceScanner:
                     self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv,
                     self.wt)
 
-            return step, mask_step, pattern.match_intervals(self.fmt) is not None
+            return (step, mask_step,
+                    pattern.exact_match_intervals(self.fmt) is not None)
         dfa = pattern.device_dfa(self.fmt)
         table = torch.from_numpy(dfa.table.astype(np.int32)).to(dev)
         accept = torch.from_numpy(dfa.accept.astype(np.int32)).to(dev)
@@ -278,8 +278,9 @@ class DeviceScanner:
                     for idx in sorted(pairs):
                         key0 = base_scalar + 1 + idx
                         cand_keys.extend(
-                            ec.glv_bit_variant_keys(key0, pairs[idx],
-                                                    parity_exact=False)
+                            ec.glv_bit_variant_keys(
+                                key0, pairs[idx], parity_exact=(
+                                    self.fmt in pipeline.GLV_EXACT_Y))
                             if glv else [key0])
                     if exact:
                         guaranteed += sum(1 for b in pairs.values() if b)
