@@ -77,7 +77,17 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     timed at K = 8, B = 524288 with CUDA events, outputs compared again,
     matching lanes > 0;
 26. timed benchmark_device runs (about 5 s each) of the three formats on a
-    never-matching interval pattern and a never-matching DFA suffix.
+    never-matching interval pattern and a never-matching DFA suffix;
+27. the probe kernels of the measurement tools (``vgen_tpu_torch/probes``,
+    built in phase 2 beside the product's units): every instance of
+    probe_primitive, probe_issue and probe_fieldmul bit-equal to its plain
+    version on the CPU at N = 4096; then each timed once at N = 524288 as
+    the tools time it, t(R) and t(2R) (R gives a delta of about 1-2 ms,
+    the tools' noise floor), with its launches counted, compared with its
+    plain version on the card at R = 16, and its launch of 2R repetitions
+    held against its bound (2R x N x the model's count at the published
+    rates, or its bytes): a probe below its bound means the model's rate
+    is wrong, and fails the run.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Tolerance everywhere: exact (the values are integers).  The line
@@ -86,15 +96,22 @@ JSON.
 
 The JSON line names the instances of kernels B to E for the three formats
 of phases 22-26 ``<kernel>[<format>]``; their launches are those of the
-format's path run (phases 23 and 24).
+format's path run (phases 23 and 24).  The probes' rows are
+``<kernel>[<instance>]`` with ``ms`` the time of one launch of 2R
+repetitions (best of five), and their launches those of that timing; the
+log gives t(2R) - t(R) beside it, the tools' cost of R repetitions, which
+is not held against the bound: a difference of two timings carries the
+noise of both.
 
 Each kernel's ``bound_ms`` is the larger of the time its 32-bit integer
-instructions need (the model below, over the SMs at the maximum SM clock
-nvidia-smi reports) and its bytes (each input read once, each output
-written once) over 3.35 TB/s.  Instructions are counted per lane from the
-algorithm (a model, not a measurement); the ladder's adds are counted from
-this run's tweak digits.  A kernel timed below its bound fails the run: the
-model would then count more than the work needs.
+instructions need (the model of ``vgen_tpu_torch/probes/bound_model.py``,
+over the SMs at the maximum SM clock nvidia-smi reports) and its bytes
+(each input read once, each output written once) over 3.35 TB/s.
+Instructions are counted per lane from the algorithm; the model's rates
+are the card's published ones (128 instructions, 64 ALU-only and 32
+32x32 -> 64 multiply-adds per SM per clock), which phase 27's probes
+check; the ladder's adds are counted from this run's tweak digits.  A kernel timed below its bound fails the run: the model
+would then count more than the work needs.
 """
 
 import contextlib
@@ -138,146 +155,6 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
-# The model behind bound_ms: 32-bit integer instructions per lane, as
-# (multiplies, all instructions), the fewest the algorithm needs, with one
-# instruction per 32x32->64 multiply-add.  An SM issues one warp
-# instruction per scheduler per clock (4 x 32 = 128 lane results) and runs
-# integer multiply-adds at 64 per clock, so a kernel needs at least
-# max(multiplies / 64, instructions / 128) clocks on every SM.
-# - field multiply: 64 partial products (a multiply-add and a carry add
-#   each), the fold of the high half by 977 (8 more), the fold's one-limb
-#   shift (8 adds) and a 16-op conditional subtract of p;
-# - field squaring: 36 distinct partial products, the 28 cross products
-#   doubled by a 16-op shift, then the same fold and subtract;
-# - modular add or subtract: 8 carrying adds and 8 for the fix-up;
-# - SHA-256 compression (``sha256_ops``): 64 rounds of 14 (per sigma three
-#   funnel-shift rotates and one three-input XOR, one LOP3 each for Ch and
-#   Maj, four three-input adds) and 48 schedule words of 10, counted term
-#   by term: a sigma of a constant word costs nothing, constant terms of a
-#   sum fold into one, a schedule word of constant terms is a constant,
-#   and so are the Ch, Maj and sigmas of a constant initial state;
-# - RIPEMD-160 of a 32-byte digest: 160 steps of 6 (a LOP3, two rotates,
-#   three adds), one add fewer in the 80 steps on constant padding words,
-#   10 for the final combination and 8 byte swaps;
-# - Keccak-f[1600] (``keccak_ops``): 24 rounds on 64-bit lanes as 32-bit
-#   halves: theta's five column parities (two three-input XORs per half,
-#   20), five rotates by one (two funnel shifts, 10) and the 25 lanes' XOR
-#   with two terms (one LOP3 per half, 50); rho's 24 rotates (48); chi (one
-#   LOP3 per half, 50); iota (2).  The first round's parities skip the zero
-#   lanes of the absorbed block, whose theta results a column shares; the
-#   last round computes only the output's halves and the five lanes that
-#   chi reads for them;
-# - inversion: 255 squarings and 15 multiplies;
-# - a DFA step: the index's multiply-add and the load;
-# - an interval compare of W words against S slots: a subtract with borrow
-#   per word against lo and against hi, and one combine, per slot.
-FE_MUL = np.array([64 + 8, 2 * 64 + 2 * 8 + 8 + 16])
-FE_SQR = np.array([36 + 8, 2 * 36 + 16 + 2 * 8 + 8 + 16])
-FE_ADD = np.array([0, 16])
-
-
-def _adds(operands):
-    """Three-input adds (or XORs) that sum ``operands`` values."""
-    return operands // 2
-
-
-def _sum(variables, constant):
-    return _adds(variables + constant) if variables else 0
-
-
-def sha256_ops(const_words, const_state=True, shared=0):
-    """(multiplies, instructions) of one SHA-256 compression whose message
-    words ``const_words`` (padding, length) and, with ``const_state``, whose
-    initial state are constants.  The first ``shared`` rounds, and the
-    sigma0 of their words, are those of a compression already counted
-    (the same leading words under the same state)."""
-    var = [j not in const_words for j in range(16)]
-    n = 0
-    for t in range(16, 64):
-        a, b, c, d = var[t - 2], var[t - 7], var[t - 15], var[t - 16]
-        terms = a + b + c + d
-        n += 4 * a + 4 * (c and t - 15 >= shared) + _sum(terms, terms < 4)
-        var.append(terms > 0)
-    st = [not const_state] * 8
-    for t in range(64):
-        a, b, c, d, e, f, g, h = st
-        ch, maj = e or f or g, a or b or c
-        t1 = h + e + ch + var[t]
-        e2, a2 = d + (t1 > 0), (t1 > 0) + a + maj
-        if t >= shared:
-            n += (4 * e + ch + 4 * a + maj + _sum(t1, 1) + _sum(e2, e2 < 2)
-                  + _sum(a2, a2 < 3))
-        st = [a2 > 0, a, b, c, e2 > 0, e, f, g]
-    return np.array([0, n])
-
-
-def sha256_msg(nbytes):
-    """One compression of an ``nbytes``-byte message (< 56) from the
-    standard initial state: the words past its data are constants."""
-    return sha256_ops(range(-(-nbytes // 4), 16))
-
-
-def keccak_ops(var_lanes, const_lanes, out_halves, out_lane0):
-    """(multiplies, instructions) of Keccak-f[1600] on a block whose lanes
-    ``var_lanes`` are data and ``const_lanes`` nonzero constants (padding;
-    the rest zero), when the caller reads ``out_halves`` 32-bit halves of
-    the first plane, lane 0 among them if ``out_lane0`` (its iota)."""
-    rnd = 20 + 10 + 50 + 48 + 50 + 2
-    first = 10 + 48 + 50 + 2
-    for x in range(5):
-        col = [x + 5 * y for y in range(5)]
-        nv = sum(lane in var_lanes for lane in col)
-        nc = sum(lane in const_lanes for lane in col)
-        first += 2 * _adds(nv + (nc > 0)) + 2 * (nv + nc + (nv + nc < 5))
-    last = 20 + 10 + 10 + 8 + out_halves + 2 * out_lane0
-    return np.array([0, first + 22 * rnd + last])
-
-
-# the 33-byte compressed key's hash160: its compression, then RIPEMD-160
-SHA256 = sha256_msg(33)
-RIPEMD160 = np.array([0, 160 * 6 - 80 + 10 + 8])
-HASH160 = SHA256 + RIPEMD160
-INV = 255 * FE_SQR + 15 * FE_MUL
-# hash160 of 04 || x || y: a 64-byte block, then one of y's last byte and
-# padding from the first block's state; the P2SH-P2WPKH redeem script
-# 00 14 || hash160 (22 bytes) through SHA-256 and RIPEMD-160
-SHA256_X65 = sha256_ops(()) + sha256_ops(range(1, 16), const_state=False)
-SCRIPT_HASH = sha256_msg(22) + RIPEMD160
-# The first block of 04 || x || y holds x's words 0-7 only, so the key of
-# -y shares the first eight rounds with the key of +y
-SHA256_X65_PAIR = (SHA256_X65 + sha256_ops((), shared=8)
-                   + sha256_ops(range(1, 16), const_state=False))
-# keccak256(x || y): lanes 0-7 data, the pads in lanes 8 and 16; the
-# account is the high half of lane 1 and lanes 2, 3
-KECCAK = keccak_ops(range(8), (8, 16), 5, False)
-# what the key of -y shares with that of +y: the first round's parity of
-# column 3 (x's lane 3 and the pad), one three-input XOR per half
-KECCAK_X_ONLY = np.array([0, 2])
-# EIP-55's keccak256 of 40 hex bytes: lanes 0-4 data, pads in lanes 5 and
-# 16; the 40 checksum nibbles are lanes 0, 1 and the low half of lane 2
-KECCAK_EIP55 = keccak_ops(range(5), (5, 16), 5, True)
-# Base58Check's checksum: SHA-256 of the 21-byte payload, then of its digest
-B58_CHECKSUM = sha256_msg(21) + sha256_msg(32)
-DFA_STEP = np.array([1, 2])
-MULS_PER_SM_CLOCK, INSTRUCTIONS_PER_SM_CLOCK = 64, 128
-HBM_BYTES_PER_S = 3.35e12
-
-
-def compare(slots, words):
-    return np.array([0, slots * (2 * words + 1)])
-
-
-def bound(ops, nbytes, sm_clocks_per_s):
-    """(bound_ms, bound_by): the larger of the instructions' time on the
-    SMs (``sm_clocks_per_s``: SMs x clock) and bytes over the memory
-    rate."""
-    t_ops = max(ops[0] / MULS_PER_SM_CLOCK,
-                ops[1] / INSTRUCTIONS_PER_SM_CLOCK) / sm_clocks_per_s
-    t_mem = nbytes / HBM_BYTES_PER_S
-    return float(max(t_ops, t_mem) * 1e3), ("operations" if t_ops >= t_mem
-                                            else "bytes")
-
-
 def max_abs_err(a, b):
     import torch
 
@@ -304,6 +181,12 @@ def main():
     from vgen_tpu_torch.scan.host import ScanConfig, StopFlag, _scan_cpu
     from vgen_tpu_torch.csrc import build
     from vgen_tpu_torch.ops import curve, fused, pipeline, sha256, u256
+    from vgen_tpu_torch.probes.bound_model import (
+        B58_SYMBOLS, BECH32M, DFA_STEP, EIP55_SYMBOLS, FE_ADD, FE_MUL, FE_SQR,
+        HASH160, INV, KECCAK, KECCAK_X_ONLY, LEAN_ADD, RIPEMD160, SCRIPT_HASH,
+        SHA256_X65, SHA256_X65_PAIR, TAGGED, bound, compare)
+    from vgen_tpu_torch.probes.bound_model import ops as model_ops
+    from vgen_tpu_torch.probes import bound_model
     from vgen_tpu_torch.scan import scanner as sc
     from vgen_tpu_torch.scan import tables
 
@@ -323,8 +206,12 @@ def main():
     log(f"[1] card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | python {sys.version.split()[0]} | devices {torch.cuda.device_count()}"
         f" | {sm_count} SMs, max SM clock {sm_mhz:.0f} MHz: "
-        f"{sm_clocks_per_s * INSTRUCTIONS_PER_SM_CLOCK / 1e12:.2f} T instructions/s, "
-        f"{sm_clocks_per_s * MULS_PER_SM_CLOCK / 1e12:.2f} T multiply-adds/s")
+        f"{sm_clocks_per_s * bound_model.INSTRUCTIONS_PER_SM_CLOCK / 1e12:.2f}"
+        f" T instructions/s, "
+        f"{sm_clocks_per_s * bound_model.ALU_PER_SM_CLOCK / 1e12:.2f} T "
+        f"ALU-only/s, "
+        f"{sm_clocks_per_s * bound_model.MULS_PER_SM_CLOCK / 1e12:.2f} T "
+        "multiply-adds/s")
 
     wrappers = {"batch_inverse_dx": fused.batch_inverse_dx,
                 "range_glv_match": fused.range_glv_match,
@@ -415,14 +302,20 @@ def main():
     plain_out = []
 
     # -- 2. build -------------------------------------------------------
+    # the product's units and the probe unit, one nvcc each, all at once
     t0 = time.time()
+    all_units = build.UNITS + build.PROBE_UNITS
+    build.build(all_units)
     build.load()
+    build.load("probes")
     log(f"[2] kernels built+loaded in {time.time() - t0:.1f} s: "
-        f"{', '.join(build.library_path(u).name for u in build.UNITS)}")
-    for line in build.build_log().splitlines():  # each unit's nvcc and seconds
-        if line.startswith("# ") or any(
-                k in line for k in ("entry function", "registers", "spill")):
-            log(f"    {line.strip()}")
+        f"{', '.join(build.library_path(u).name for u in all_units)}")
+    for unit in all_units:  # each unit's nvcc and seconds, the product's
+        for line in build.build_log((unit,)).splitlines():  # ptxas figures
+            if line.startswith("# ") or unit in build.UNITS and any(
+                    k in line for k in ("entry function", "registers",
+                                        "spill")):
+                log(f"    {line.strip()}")
 
     # -- 3. kernel A vs plain --------------------------------------------
     rng = np.random.default_rng(20261016)
@@ -726,7 +619,7 @@ def main():
     # Base58Check of a P2PKH address: the checksum's two compressions, 49
     # 64-bit divisions by 58^5 (8 each), 35 digit splits (5) and the
     # 35-step walk
-    b58_walk = B58_CHECKSUM + np.array([0, 49 * 8 + 35 * 5]) + 35 * DFA_STEP
+    b58_walk = B58_SYMBOLS + 35 * DFA_STEP
     finish_xy = 2 * FE_MUL + FE_SQR + 6 * FE_ADD
     for kname, run, plain, replaces, path, err_small, ops, nbytes in (
         ("range_match",
@@ -922,8 +815,8 @@ def main():
     # per lane: the even-Y negation, the tweak's compression of x from the
     # tag's midstate and t < n; per add (8M + 3S): six subtractions and 2V
     # as an addition
-    tweak_ops = FE_ADD + sha256_ops(range(8, 16)) + np.array([0, 16])
-    add_ops = 8 * FE_MUL + 3 * FE_SQR + 7 * FE_ADD
+    tweak_ops = FE_ADD + TAGGED + model_ops(0, 0, 16)
+    add_ops = LEAN_ADD
     ladder_ops = N * (finish_xy + tweak_ops) + adds * add_ops
     finish_ops = N * (FE_MUL + FE_SQR)
     finish_in = 100 * N + 4 * K
@@ -931,7 +824,7 @@ def main():
     # checksum's 6) and 58 polymod steps on them (12 each: shift, mask,
     # the symbol's XOR and five conditional XORs of 2; the human-readable
     # part and the witness version fold to constants); the 60-step walk
-    bech32m_walk = np.array([0, 58 * (2 + 12)]) + 60 * DFA_STEP
+    bech32m_walk = BECH32M + 60 * DFA_STEP
     for kname, run, plain, ref, replaces, path, ops, nbytes, pshape in (
         ("p2tr_ladder",
          lambda: fused.p2tr_ladder(*lanes20, wt_d), plain_f, ref_plain,
@@ -941,7 +834,7 @@ def main():
          lambda: fused.batch_inverse_chain(Z_f),
          lambda: fused.batch_inverse_chain_plain(Z_f), zi_f,
          "vgen_tpu/ops/pallas_fused.py:441", "random interval p2tr",
-         N * (3 * FE_MUL + INV / fused._chain_len(N) + np.array([0, 8])),
+         N * (3 * FE_MUL + INV / fused._chain_len(N) + model_ops(0, 0, 8)),
          64 * N, shape),
         ("p2tr_finish_range",
          lambda: fused.p2tr_finish_range(X_f, Z_f, zi_f, ok_f, lo20, hi20, remf),
@@ -1151,7 +1044,7 @@ def main():
     glv_value_ops = {P2SH: 6 * value_ops[P2SH],
                      UNC: 3 * (SHA256_X65_PAIR + 2 * RIPEMD160),
                      ETH: 6 * KECCAK - 3 * KECCAK_X_ONLY}
-    eip55_walk = KECCAK_EIP55 + np.array([0, 40 * (4 + 3)]) + 41 * DFA_STEP
+    eip55_walk = EIP55_SYMBOLS + 41 * DFA_STEP
     # the full finish, beta x, beta^2 x and one negation of y
     finish_xy_glv = finish_xy + 2 * FE_MUL + FE_ADD
     for fmt25, iv_src, d_src, e_src in (
@@ -1225,6 +1118,96 @@ def main():
         log(f"[26] benchmark_device {src} ({fmt26.value} {route}, GLV): "
             f"{stats['keys_per_sec']:,.0f} keys/s ({stats['operations']:,} "
             f"keys in {stats['elapsed']:.2f} s) on {smi}")
+
+    # -- 27. the probe kernels (the measurement tools' path) ------------------
+    from vgen_tpu_torch.probes import common as pcommon
+    from vgen_tpu_torch.probes import microbench_fieldmul as pfm
+    from vgen_tpu_torch.probes import microbench_vpu as pvpu
+    from vgen_tpu_torch.probes import roofline as proof
+    from vgen_tpu_torch.probes import timing as ptiming
+
+    table_c = proof.dfa_table()
+    table_d = table_c.to(dev)
+
+    def prim(name, plain=False):
+        def run(a, b, reps):
+            t = table_d if a.is_cuda else table_c
+            return (proof.probe_primitive_plain if plain
+                    else proof.probe_primitive)(name, a, b, t, reps)
+        return run
+
+    # (kernel, instance, wrapper, run, plain, the model's count of one
+    # repetition, R of the timed launches: enough for about a millisecond)
+    probes = [("probe_primitive", name, proof.probe_primitive, prim(name),
+               prim(name, True), count, 16 if count[2] > 500 else 128)
+              for name, (_, count) in proof.PRIMITIVES.items()]
+    probes += [("probe_issue", pvpu.instance_name(op, c), pvpu.probe_issue,
+                lambda a, b, r, op=op, c=c: pvpu.probe_issue(op, c, a, b, r),
+                lambda a, b, r, op=op, c=c: pvpu.probe_issue_plain(op, c, a, b,
+                                                                  r),
+                pvpu.model_count(op, c), 4096 * 8 // c)
+               for op, c in pvpu.instances()]
+    probes += [("probe_fieldmul", mode, pfm.probe_fieldmul,
+                lambda a, b, r, m=mode: pfm.probe_fieldmul(m, a, b, r),
+                lambda a, b, r, m=mode: pfm.probe_fieldmul_plain(m, a, b, r),
+                count, 64 if count[2] > 100 else 256)
+               for mode, (_, count) in pfm.MODES.items()]
+    replaces27 = {"probe_primitive": "scripts/roofline.py:162",
+                  "probe_issue": "scripts/microbench_vpu.py:66",
+                  "probe_fieldmul": "scripts/microbench_fieldmul.py:120"}
+    n_small, r_plain = 4096, 16
+    a_s, b_s = pcommon.inputs(n_small, seed=27)
+    a_sd, b_sd = a_s.to(dev), b_s.to(dev)
+    err27 = {}
+    t0 = time.time()
+    for kname, iname, _, run, _, _, _ in probes:
+        r_small = 8 if kname == "probe_issue" else 2
+        want = run(a_s, b_s, r_small)
+        got = run(a_sd, b_sd, r_small)
+        torch.cuda.synchronize()
+        err27[iname] = max_abs_err(got.cpu(), want)
+        require(err27[iname] == 0, f"{kname}[{iname}] differs from its plain "
+                f"version at N={n_small} ({err27[iname]})")
+        require(not torch.equal(want, a_s), f"{kname}[{iname}] left its "
+                "input unchanged")
+    log(f"[27] {len(probes)} probe instances == plain (on the CPU) at "
+        f"N={n_small}, R = 2 (probe_issue 8) in {time.time() - t0:.1f} s")
+    n27 = pcommon.TIMED_N
+    a_f, b_f = (t.to(dev) for t in pcommon.inputs(n27, seed=28))
+    t0 = time.time()
+    for kname, iname, wrapper, run, plain, count, R in probes:
+        # this instance's path: its two-point timing, the tools' own
+        wrapper.launches = 0
+        t1, t2, delta = ptiming.delta_ms(lambda r: run(a_f, b_f, r), R)
+        launches27 = wrapper.launches
+        require(launches27 > 0, f"{kname}[{iname}] was not launched")
+        ref = run(a_f, b_f, r_plain)
+        plain_ms = cuda_ms(lambda: plain_out.append(plain(a_f, b_f, r_plain)),
+                           1, warm=False)
+        err = max_abs_err(plain_out.pop(), ref)
+        require(err == 0, f"{kname}[{iname}] differs from its plain version "
+                f"at N={n27}")
+        # a, b read and out written once, the DFA table read once
+        nbytes = 3 * a_f.numel() * 4 + (table_d.numel() * 4
+                                        if iname.startswith("dfachar") else 0)
+        bms, bby = bound(2 * R * n27 * count, nbytes, sm_clocks_per_s)
+        require(t2 >= bms, f"{kname}[{iname}]: {t2:.4f} ms for 2R={2 * R} "
+                f"beats its bound {bms:.4f} ms: the model's rate is wrong")
+        kernels.append({
+            "name": f"{kname}[{iname}]", "route": "cuda",
+            "source": "vgen_tpu_torch/probes/probes.cu",
+            "replaces": replaces27[kname], "launches": launches27,
+            "max_abs_err": max(err, err27[iname]), "ms": t2,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None,
+        })
+        bms_r = bound(R * n27 * count, 0, sm_clocks_per_s)[0]
+        log(f"[27] {kname}[{iname}] at N={n27}: R={R} t(R) {t1:.4f} ms, "
+            f"t(2R) {t2:.4f} ms, bound of 2R {bms:.4f} ms ({bby}, share "
+            f"{bms / t2:.2f}); delta {delta:.4f} ms, share "
+            f"{bms_r / max(delta, 1e-9):.2f}; plain {plain_ms:.1f} ms at "
+            f"R={r_plain}, bit-equal ({smi})")
+    log(f"[27] timed {len(probes)} instances in {time.time() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

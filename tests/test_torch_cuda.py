@@ -249,3 +249,46 @@ def test_dfa_kernels_d_e_new_formats_equal_plain(dev, fmt, glv, case):
     want = fused.fused_scan_mask_step(fmt, *cpu, dfa.start, rem, glv)
     assert torch.equal(got.cpu(), want)
     assert int((want > 0).sum()) > 0
+
+
+# The probe kernels of vgen_tpu_torch/probes (the measurement tools), every
+# instance at N = 4096 against its plain version on the CPU.
+PROBE_N = 4096
+
+
+def _probe_cases():
+    from vgen_tpu_torch.probes import microbench_fieldmul as fm
+    from vgen_tpu_torch.probes import microbench_vpu as vpu
+    from vgen_tpu_torch.probes import roofline
+
+    def prim(name):
+        return lambda a, b, r: roofline.probe_primitive(
+            name, a, b, roofline.dfa_table().to(a.device), r)
+
+    cases = [(f"probe_primitive[{n}]", roofline.probe_primitive, prim(n), 2)
+             for n in roofline.PRIMITIVES]
+    cases += [(f"probe_issue[{vpu.instance_name(op, c)}]", vpu.probe_issue,
+               lambda a, b, r, op=op, c=c: vpu.probe_issue(op, c, a, b, r), 16)
+              for op, c in vpu.instances()]
+    cases += [(f"probe_fieldmul[{m}]", fm.probe_fieldmul,
+               lambda a, b, r, m=m: fm.probe_fieldmul(m, a, b, r), 2)
+              for m in fm.MODES]
+    return cases
+
+
+PROBE_CASES = _probe_cases()
+
+
+@pytest.mark.parametrize("case", PROBE_CASES, ids=[c[0] for c in PROBE_CASES])
+def test_probe_kernels_equal_plain(dev, case):
+    from vgen_tpu_torch.probes import common
+
+    _, wrapper, run, reps = case
+    a, b = common.inputs(PROBE_N, seed=4096)
+    before = wrapper.launches
+    got = run(a.to(dev), b.to(dev), reps)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = run(a, b, reps)
+    assert torch.equal(got.cpu(), want)
+    assert not torch.equal(want, a)

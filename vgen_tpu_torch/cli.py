@@ -1,5 +1,5 @@
 """Command line of the port: generate / estimate / range / verify /
-list-devices.
+list-devices (alias list-gpus).
 
 ``generate`` and ``range`` scan on the card (``--backend cuda``, the
 default; with no visible card they exit with an error), on CPU tensors
@@ -12,7 +12,9 @@ visible.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import signal
 import sys
 import time
@@ -49,7 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="Bitcoin vanity address generator on an NVIDIA GPU "
         "(PyTorch + CUDA)",
     )
-    sub = p.add_subparsers(dest="command", required=True)
+    # the metavar leaves the hidden alias list-gpus out of the usage line
+    sub = p.add_subparsers(
+        dest="command", required=True,
+        metavar="{generate,estimate,range,verify,list-devices}")
 
     def add_search_args(sp, pattern_required: bool):
         sp.add_argument("-p", "--pattern", required=pattern_required,
@@ -81,6 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Write output to file instead of stdout")
         sp.add_argument("--repeat", type=int, default=1,
                         help="Repeat the search N times")
+        sp.add_argument("--profile", default=None, metavar="DIR",
+                        help="Write a torch.profiler trace of the scan into "
+                        "DIR (a Chrome trace: chrome://tracing or Perfetto)")
         sp.add_argument("-q", "--quiet", action="store_true")
 
     g = sub.add_parser("generate", help="Generate vanity address matching a pattern")
@@ -88,7 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("-i", "--ignore-case", action="store_true")
     g.add_argument("-c", "--count", type=int, default=1,
                    help="Stop after finding N matches")
-    g.add_argument("--cpu-batch-size", type=int, default=None)
+    g.add_argument("--cpu-batch-size", type=int, default=10000)
+    g.add_argument("--tui", action="store_true",
+                   help="(deprecated; the TUI is the default in terminals)")
 
     e = sub.add_parser("estimate", help="Estimate difficulty of a pattern (dry run)")
     e.add_argument("-p", "--pattern", required=True)
@@ -113,6 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     ld = sub.add_parser("list-devices", help="List visible CUDA devices")
     ld.add_argument("--json", action="store_true")
+    # the reference's hidden alias: a parser with no help text is not listed
+    lg = sub.add_parser("list-gpus")
+    lg.add_argument("--json", action="store_true")
     return p
 
 
@@ -342,9 +355,14 @@ def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
                   f"{len(state['match_keys'])} match(es)", file=sys.stderr)
     invalid = pat.validate_charset(fmt)
     if invalid:
-        print(f"Warning: Pattern contains characters not valid in "
-              f"{fmt.charset_name} addresses: '{''.join(invalid)}' - pattern "
-              "will NEVER match!", file=sys.stderr)
+        name = fmt.charset_name
+        print(f"Warning: Pattern contains characters not valid in {name} "
+              f"addresses: '{''.join(invalid)}'", file=sys.stderr)
+        print(f"  {name} alphabet excludes these characters - pattern will "
+              "NEVER match!", file=sys.stderr)
+        if name == "Base58":
+            print("  Base58 excludes: 0 (zero), O (uppercase o), I (uppercase"
+                  " i), l (lowercase L)", file=sys.stderr)
     config = ScanConfig(
         format=fmt, count=count, threads=args.threads,
         device_batch_size=args.device_batch_size,
@@ -354,18 +372,25 @@ def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
     stop = StopFlag()
     t0 = time.time()
     total = ScanResult()
+    last_print = [0.0]
 
     def progress(ops):
+        # at most one line every 0.5 s, as the reference prints
         if args.quiet:
             return
-        elapsed = time.time() - t0
+        now = time.time()
+        if now - last_print[0] <= 0.5:
+            return
+        last_print[0] = now
+        elapsed = now - t0
         done = total.operations + ops
         rate = done / elapsed if elapsed > 0 else 0.0
         print(f"\r[{format_duration(elapsed)}] checked "
               f"{format_with_commas(done)} keys ({rate:,.0f}/s)   ",
               end="", file=sys.stderr)
 
-    with _TwoStageInterrupt(stop):
+    with _TwoStageInterrupt(stop), _profiled(args.profile, device,
+                                             args.quiet):
         for _ in range(max(1, args.repeat)):
             res = sc.scan_with_progress(pat, config, progress, stop,
                                         device=device or "cpu")
@@ -381,6 +406,33 @@ def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
     return 0
 
 
+@contextlib.contextmanager
+def _profiled(trace_dir: Optional[str], device: Optional[str], quiet: bool):
+    """With ``trace_dir``, a torch.profiler trace of the scan (CPU and CUDA
+    activity on the card, CPU activity otherwise), written into the
+    directory as a Chrome trace; the counterpart of the reference's
+    ``--profile`` (a JAX profiler trace)."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()  # a profiler that cannot start raises here, as itself
+    try:
+        yield
+    finally:
+        prof.stop()
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"vgen_tpu_torch_scan_{os.getpid()}.json"))
+        if not quiet:
+            print(f"\nProfiler trace written to {trace_dir}", file=sys.stderr)
+
+
 def _refuse_tui(args) -> None:
     if not args.no_tui and sys.stdout.isatty():
         raise NotImplementedError(
@@ -392,6 +444,13 @@ def cmd_generate(args) -> int:
     fmt = AddressFormat.from_str(args.format)
     pattern_str, fmt = resolve_pattern_and_format(
         args.pattern, args.prefix_length, fmt)
+    if args.tui:
+        print("Warning: --tui is deprecated. TUI is now enabled by default in "
+              "interactive terminals.", file=sys.stderr)
+    if args.ignore_case and fmt in (AddressFormat.P2WPKH,
+                                    AddressFormat.ETHEREUM):
+        print("Warning: Bech32/Ethereum addresses case sensitivity handling is "
+              "specific. -i flag might be redundant.", file=sys.stderr)
     _refuse_tui(args)
     device = resolve_device(args.backend, args.no_device)
     return run_search(pattern_str, args.ignore_case, fmt, args.count,

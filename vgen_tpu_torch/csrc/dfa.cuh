@@ -31,6 +31,11 @@ struct Dfa {
   int start;
 };
 
+// One step: the state after state s reads symbol sym.
+VG_FN int dfa_step(const Dfa& dfa, int s, int sym) {
+  return VG_LDG(dfa.table + (long)s * dfa.width + sym);
+}
+
 // T + 1 steps: step j feeds syms[j] while j < length, end-of-string at
 // j == length and padding after it; the result is accept[state].
 VG_FN bool dfa_walk(const Dfa& dfa, const uint8_t* syms, int T, int length) {
@@ -38,7 +43,7 @@ VG_FN bool dfa_walk(const Dfa& dfa, const uint8_t* syms, int T, int length) {
   for (int j = 0; j <= T; j++) {
     const int sym = j < length ? (int)syms[j]
                                : (j == length ? dfa.width - 2 : dfa.width - 1);
-    s = VG_LDG(dfa.table + (long)s * dfa.width + sym);
+    s = dfa_step(dfa, s, sym);
   }
   return VG_LDG(dfa.accept + s) != 0;
 }

@@ -166,9 +166,9 @@ VG_FN void fe_mul_small(uint32_t r[8], const uint32_t a[8], uint32_t k) {
   fe_normalize(r);
 }
 
-// r = a * b mod p.  r may alias a or b.
-VG_FN void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-  uint32_t t[16];
+// t = a * b, the 512-bit product in 16 limbs: one row of eight
+// multiply-adds per limb of a, each row's carry chain in 64 bits.
+VG_FN void fe_mul_wide(uint32_t t[16], const uint32_t a[8], const uint32_t b[8]) {
 #pragma unroll
   for (int i = 0; i < 16; i++) t[i] = 0u;
 #pragma unroll
@@ -182,6 +182,11 @@ VG_FN void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
     }
     t[i + 8] = (uint32_t)c;
   }
+}
+
+// r = t mod p for any 512-bit t (16 limbs), canonical: the high half
+// folds back as hi * 977 + (hi << 32), then twice more what carries out.
+VG_FN void fe_reduce512(uint32_t r[8], const uint32_t t[16]) {
   // fold 1: lo + hi * 977 + (hi << 32); each step < 2^43
   uint32_t s[8];
   u64 c = 0;
@@ -223,6 +228,13 @@ VG_FN void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   }
   fe_normalize(s);
   fe_copy(r, s);
+}
+
+// r = a * b mod p.  r may alias a or b.
+VG_FN void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+  uint32_t t[16];
+  fe_mul_wide(t, a, b);
+  fe_reduce512(r, t);
 }
 
 VG_FN void fe_sqr(uint32_t r[8], const uint32_t a[8]) { fe_mul(r, a, a); }

@@ -20,7 +20,8 @@ from vgen_tpu_torch.ops import u256
 from vgen_tpu_torch.ops.u256 import MASK32, NLIMBS
 
 __all__ = ["P_INT", "N_INT", "normalize", "add", "sub", "neg", "mul_small",
-           "mul", "square", "inv", "batch_inverse_chain"]
+           "mul", "mul_wide", "reduce512", "square", "inv",
+           "batch_inverse_chain"]
 
 _C = 977
 
@@ -83,24 +84,29 @@ def _carry(cols, bits: int):
     return out, carry
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a * b mod p, canonical.  Products are formed on 16-bit halves so no
-    intermediate reaches 2^63."""
+def _product_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(32, *S) schoolbook columns of a * b on 16-bit halves, each below
+    2^36 (so no intermediate reaches 2^63); column 31 is 0."""
     a, b = torch.broadcast_tensors(a, b)
     a16 = u256.limbs32_to_16(a)
     b16 = u256.limbs32_to_16(b)
-    # schoolbook columns: 16 products of < 2^32 each -> < 2^36
-    cols = torch.zeros((31,) + tuple(a.shape[1:]), dtype=torch.int64,
+    cols = torch.zeros((32,) + tuple(a.shape[1:]), dtype=torch.int64,
                        device=a.device)
     for i in range(16):
         cols[i:i + 16] += a16[i] * b16
+    return cols
+
+
+def _reduce_cols(cols: torch.Tensor) -> torch.Tensor:
+    """The value of 32 16-bit-weighted columns (each below 2^47 / 977)
+    mod p, canonical."""
     # fold 1: column 16+j is worth 2^(16j) * (2^32 + 977)
-    lo = torch.cat([cols[:16], torch.zeros_like(cols[:1])])
+    lo = torch.cat([cols[:16], torch.zeros_like(cols[:2])])
     hi = cols[16:]
-    lo[0:15] += hi * _C
-    lo[2:17] += hi
-    limbs16, carry = _carry(list(lo), 16)  # 17 limbs + carry: < 2^289
-    top = limbs16[16] + (carry << 16)  # bits 256.. as one int64, < 2^33
+    lo[0:16] += hi * _C
+    lo[2:18] += hi
+    limbs16, carry = _carry(list(lo), 16)  # 18 limbs + carry: < 2^289
+    top = limbs16[16] + (limbs16[17] << 16) + (carry << 32)  # < 2^33
     low = torch.stack([limbs16[2 * i] | (limbs16[2 * i + 1] << 16)
                        for i in range(NLIMBS)])
     # fold 2: top * (2^32 + 977) into the 32-bit limbs
@@ -115,6 +121,23 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     r[1] = r[1] + c2
     r, _ = _carry(r, 32)
     return normalize(torch.stack(r))
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b mod p, canonical."""
+    return _reduce_cols(_product_cols(a, b))
+
+
+def mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b as a (16, *S) 512-bit value (``fe_mul_wide``)."""
+    limbs16, _ = _carry(list(_product_cols(a, b)), 16)
+    return u256.limbs16_to_32(torch.stack(limbs16))
+
+
+def reduce512(t: torch.Tensor) -> torch.Tensor:
+    """A (16, *S) 512-bit value mod p, canonical (``fe_reduce512``)."""
+    return _reduce_cols(torch.cat([u256.limbs32_to_16(t[:8]),
+                                   u256.limbs32_to_16(t[8:])]))
 
 
 def square(a: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,210 @@
+"""Timing for the probe tools, on the card only: the card's identity, the
+SM clock sampled while a probe runs, the two-point delta cost with its
+noise floor, and the opcode counts of a kernel's loop from its SASS.
+
+A probe's cost is (t(2R) - t(R)) / R, each t a CUDA-event time of one
+launch: launch overhead and the loads and stores cancel.  R doubles until
+the delta clears a noise floor measured from repeated t(R) and t(2R)
+(five times their spread, at least ``MIN_FLOOR_MS``), the method of
+``scripts/roofline.py``; a delta that never clears it is an error, not a
+zero.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import subprocess
+import threading
+import time
+from collections import Counter
+from typing import Callable, Dict, Optional
+
+import torch
+
+MIN_FLOOR_MS = 1.0
+CLOCK_WINDOW_S = 0.3
+
+
+def smi_query(fields: str) -> str:
+    """One line of ``nvidia-smi --query-gpu=<fields>`` for card 0."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+class Card:
+    """The card the tools measure: name and power limit as nvidia-smi
+    gives them (printed beside every number) and SM count.  Raises SystemExit where no CUDA card is visible: the tools
+    measure the card and nothing else."""
+
+    def __init__(self):
+        if not torch.cuda.is_available():
+            raise SystemExit("error: the probe tools measure a CUDA card, and "
+                             "none is visible")
+        self.device = torch.device("cuda", 0)
+        self.smi = smi_query("name,power.limit")
+        self.sm_count = torch.cuda.get_device_properties(
+            self.device).multi_processor_count
+
+    def tag(self) -> str:
+        return f"({self.smi})"
+
+
+class ClockSampler:
+    """``nvidia-smi`` sampling the SM clock every 50 ms in the background,
+    each reading stamped with the host clock; ``mean_mhz(t0, t1)`` averages
+    the readings of a window.  A context manager: the sampler stops on
+    exit."""
+
+    def __init__(self):
+        self.samples = []
+        self._proc = None
+        self._thread = None
+
+    def __enter__(self):
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+        return self
+
+    def _read(self):
+        for line in self._proc.stdout:
+            try:
+                self.samples.append((time.time(), float(line.split()[0])))
+            except (ValueError, IndexError):
+                continue
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        try:
+            self._proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self._proc.kill()
+            self._proc.wait()
+        self._thread.join(timeout=10)
+
+    def mean_mhz(self, t0: float, t1: float) -> Optional[float]:
+        window = [mhz for t, mhz in list(self.samples) if t0 <= t <= t1]
+        return sum(window) / len(window) if window else None
+
+
+def event_ms(fn: Callable[[], object]) -> float:
+    """Milliseconds of one call of fn() by CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def delta_ms(run: Callable[[int], object], reps: int):
+    """(t(R), t(2R), t(2R) - t(R)) in ms, each the best of five
+    event-timed launches after one warm-up launch, as ``measure`` takes
+    them: the cost of R repetitions, measured once (no search for R)."""
+    run(reps)
+    run(2 * reps)
+    t1 = min(event_ms(lambda: run(reps)) for _ in range(5))
+    t2 = min(event_ms(lambda: run(2 * reps)) for _ in range(5))
+    return t1, t2, t2 - t1
+
+
+def measure(run: Callable[[int], object], reps0: int, max_reps: int,
+            clocks: ClockSampler) -> Dict:
+    """The two-point cost of ``run(reps)``: R doubles from ``reps0`` until
+    t(2R) - t(R) (best of five each) clears the noise floor, then
+    the launch at 2R repeats for ``CLOCK_WINDOW_S`` while ``clocks``
+    samples the SM clock.  -> {reps, t1_ms, t2_ms, delta_ms, floor_ms,
+    mhz}, or with "error" set where the delta never cleared the floor by
+    ``max_reps`` or no clock reading fell in the window."""
+    reps = reps0
+    while True:
+        run(reps)
+        run(2 * reps)
+        t1s = sorted(event_ms(lambda: run(reps)) for _ in range(5))
+        t2s = sorted(event_ms(lambda: run(2 * reps)) for _ in range(5))
+        spread = max(t1s[1] - t1s[0], t2s[1] - t2s[0])
+        res = {"reps": reps, "t1_ms": t1s[0], "t2_ms": t2s[0],
+               "delta_ms": t2s[0] - t1s[0],
+               "floor_ms": max(5 * spread, MIN_FLOOR_MS)}
+        if res["delta_ms"] >= res["floor_ms"]:
+            break
+        if 2 * reps > max_reps:
+            res["error"] = "delta below the noise floor at the largest R"
+            return res
+        reps *= 2
+    t0 = time.time()
+    while time.time() - t0 < CLOCK_WINDOW_S:
+        run(2 * reps)
+        torch.cuda.synchronize()
+    res["mhz"] = clocks.mean_mhz(t0, time.time())
+    if res["mhz"] is None:
+        res["error"] = "no SM clock reading in the window"
+    return res
+
+
+def cuobjdump() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "cuobjdump")
+
+
+_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_PRED = re.compile(r"^@!?U?P[T0-9]+\s+")
+_TARGET = re.compile(r"0x([0-9a-f]+)\s*$")
+
+
+def _opcode(text: str) -> str:
+    op = _PRED.sub("", text).split()[0]
+    return ".".join(op.split(".")[:2])
+
+
+def loop_opcodes(sass: str) -> Counter:
+    """Opcode counts (name and first modifier) of the widest loop of one
+    function's SASS: the instructions from a backward branch's target to
+    the branch."""
+    instrs = []
+    for m in _INSTR.finditer(sass):
+        text = m.group(2).strip()
+        if text:
+            instrs.append((int(m.group(1), 16), text))
+    best = None
+    for addr, text in instrs:
+        if _opcode(text).split(".")[0] != "BRA":
+            continue
+        t = _TARGET.search(text)
+        if t and int(t.group(1), 16) < addr:
+            span = (int(t.group(1), 16), addr)
+            if best is None or span[1] - span[0] > best[1] - best[0]:
+                best = span
+    if best is None:
+        return Counter()
+    return Counter(_opcode(text) for addr, text in instrs
+                   if best[0] <= addr <= best[1])
+
+
+def kernel_loops(library: str, kernel: str) -> Dict[tuple, Counter]:
+    """{template arguments: loop opcode counts} for every instance of the
+    kernel template ``kernel`` in the library, from ``cuobjdump -sass``."""
+    out = subprocess.run([cuobjdump(), "-sass", library], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    loops = {}
+    for part in out.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        m = re.search(kernel + r"I((?:Li\d+E)+)E", name)
+        if m:
+            args = tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1)))
+            loops[args] = loop_opcodes(part)
+    return loops
+
+
+def opcode_text(counts: Counter, per: int = 1) -> str:
+    """'OP n, ...' by count, each divided by ``per`` (loop iterations per
+    repetition unrolled)."""
+    return ", ".join(f"{op} {n / per:g}" for op, n in counts.most_common())

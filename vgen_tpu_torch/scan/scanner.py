@@ -317,6 +317,12 @@ class DeviceScanner:
         )
 
 
+# DeviceScanners by (format, batch, device): each holds its uploaded tables,
+# so repeated scans (``--repeat``, the calls of one process) build and
+# upload them once (vgen_tpu/scan/scanner.py ``_scanner_cache``)
+_scanner_cache = {}
+
+
 def scan_with_progress(pattern: Pattern, config: ScanConfig,
                        progress_callback: Optional[ProgressCallback] = None,
                        stop_flag: Optional[StopFlag] = None,
@@ -325,10 +331,12 @@ def scan_with_progress(pattern: Pattern, config: ScanConfig,
     the port's native CPU scanner when ``config.use_device`` is False."""
     if not config.use_device:
         return _scan_cpu(pattern, config, progress_callback, stop_flag)
-    scanner = DeviceScanner(config.format,
-                            config.device_batch_size or DEFAULT_DEVICE_BATCH,
-                            device)
-    return scanner.scan(pattern, config, progress_callback, stop_flag)
+    batch = config.device_batch_size or DEFAULT_DEVICE_BATCH
+    key = (config.format, batch, torch.device(device))
+    if key not in _scanner_cache:
+        _scanner_cache[key] = DeviceScanner(config.format, batch, device)
+    return _scanner_cache[key].scan(pattern, config, progress_callback,
+                                    stop_flag)
 
 
 def benchmark_device(fmt: AddressFormat = AddressFormat.P2PKH,
