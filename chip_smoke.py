@@ -87,7 +87,19 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     plain version on the card at R = 16, and its launch of 2R repetitions
     held against its bound (2R x N x the model's count at the published
     rates, or its bytes): a probe below its bound means the model's rate
-    is wrong, and fails the run.
+    is wrong, and fails the run;
+28. the stage and geometry probes (the same unit, nothing new to build):
+    every instance of probe_glv_stage (seven modes), probe_vtile (V = 1,
+    2, 4 keys per thread x T = 64-512 threads), probe_rows (three row
+    shapes, with and without the multiply) and probe_layout (four
+    layouts) bit-equal to its plain version on the CPU at N = 4096 (the
+    rows at 256 steps, the stage inputs with their forced ec lanes), the
+    tile instances and full also to production kernel B on the card; then
+    each timed once at its tool's shape with CUDA events (one window of
+    524288 lanes; 1024 x 128 lanes of 8192 steps; 2^20 lanes at R = 8),
+    its launches counted, held bit-equal to its plain version on the card
+    (and the tiles to kernel B) and against its bound, with the new
+    kernels' ptxas figures.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Tolerance everywhere: exact (the values are integers).  The line
@@ -101,7 +113,10 @@ format's path run (phases 23 and 24).  The probes' rows are
 repetitions (best of five), and their launches those of that timing; the
 log gives t(2R) - t(R) beside it, the tools' cost of R repetitions, which
 is not held against the bound: a difference of two timings carries the
-noise of both.
+noise of both.  Phase 28's rows are ``probe_glv_stage[<mode>]``,
+``probe_vtile[<V>x<T>]``, ``probe_rows[<shape>]`` (``_mul`` with the
+multiply) and ``probe_layout[<layout>]``, ``ms`` the mean of its timed
+launches.
 
 Each kernel's ``bound_ms`` is the larger of the time its 32-bit integer
 instructions need (the model of ``vgen_tpu_torch/probes/bound_model.py``,
@@ -1208,6 +1223,151 @@ def main():
             f"{bms_r / max(delta, 1e-9):.2f}; plain {plain_ms:.1f} ms at "
             f"R={r_plain}, bit-equal ({smi})")
     log(f"[27] timed {len(probes)} instances in {time.time() - t0:.1f} s")
+
+    # -- 28. the stage and geometry probes (the tools' path) -----------------
+    from vgen_tpu_torch.probes import microbench_layout as playout
+    from vgen_tpu_torch.probes import microbench_rows as prows
+    from vgen_tpu_torch.probes import profile_glv as pstage
+    from vgen_tpu_torch.probes import proto_vtile as pvtile
+
+    t0 = time.time()
+    probe_log = build.build_log(("probes",))
+    for kname in ("probe_glv_stage", "probe_vtile", "probe_rows",
+                  "probe_layout"):
+        figs = ptiming.ptxas_figures(probe_log, kname)
+        log(f"[28] ptxas {kname}: " + "; ".join(
+            f"{args} {ptiming.ptxas_text(f)}" for args, f in sorted(
+                figs.items())))
+    n28 = 4096
+    row_steps, row_small = prows.CH_LEN, 256
+    lay_r = playout.R
+    # the inputs of each kind (and of each layout): (on the CPU at N = n28,
+    # on the card at the tool's shape)
+    inputs28 = {
+        "stage": (pstage.stage_inputs(n28, "cpu", force=True),
+                  pstage.stage_inputs(pcommon.TIMED_N, dev)),
+        "vtile": (pvtile.vtile_inputs(n28),
+                  tuple(t.to(dev) for t in
+                        pvtile.vtile_inputs(pcommon.TIMED_N))),
+        "rows": ((prows.rows_inputs(n28),),
+                 (prows.rows_inputs(prows.LANES * prows.GRID).to(dev),)),
+    }
+    lay_small = playout.layout_inputs(n28)
+    lay_timed = tuple(t.to(dev) for t in playout.layout_inputs(playout.LANES))
+    for lay in playout.LAYOUTS:  # each layout's operands, laid out once
+        inputs28[lay] = tuple(tuple(playout.to_layout(t, lay) for t in ab)
+                              for ab in (lay_small, lay_timed))
+    kernel_b = {kind: fused.range_glv_match(AddressFormat.P2PKH,
+                                            *inputs28[kind][1])
+                for kind in ("stage", "vtile")}
+
+    def stage28(mode, plain=False):
+        fn = pstage.glv_stage_plain if plain else pstage.probe_glv_stage
+        return lambda args: fn(mode, *args)
+
+    def vtile28(v, t, plain=False):
+        return ((lambda args: pvtile.probe_vtile_plain(*args)) if plain else
+                (lambda args: pvtile.probe_vtile(v, t, *args)))
+
+    def rows28(shape, mul, plain=False):
+        fn = prows.probe_rows_plain if plain else prows.probe_rows
+        return lambda args, steps=row_steps: fn(shape, mul, args[0], steps)
+
+    def layout28(lay, plain=False):
+        fn = playout.probe_layout_plain if plain else playout.probe_layout
+        return lambda args: fn(lay, args[0], args[1], lay_r)
+
+    stage_slots = inputs28["stage"][1][5].shape[0]
+    vtile_slots = inputs28["vtile"][1][5].shape[0]
+    stage_bytes = pstage.stage_nbytes(1, pcommon.TIMED_N, stage_slots)
+    row_lanes = prows.LANES * prows.GRID
+    # (row name, wrapper, kind, run, plain, count, bytes, replaces, whether
+    # its output is kernel B's)
+    probes28 = [
+        (f"probe_glv_stage[{m}]", pstage.probe_glv_stage, "stage",
+         stage28(m), stage28(m, True),
+         pcommon.TIMED_N * pstage.stage_count(m, stage_slots), stage_bytes,
+         "scripts/profile_glv.py:165", m in ("full", "fullr"))
+        for m in pstage.MODES]
+    probes28 += [
+        (f"probe_vtile[{pvtile.instance_name(v, t)}]", pvtile.probe_vtile,
+         "vtile", vtile28(v, t), vtile28(v, t, True),
+         pcommon.TIMED_N * pstage.stage_count("full", vtile_slots),
+         pstage.stage_nbytes(1, pcommon.TIMED_N, vtile_slots),
+         "scripts/proto_vtile.py:65", True) for v, t in pvtile.instances()]
+    probes28 += [
+        (f"probe_rows[{prows.instance_name(sh, mul)}]", prows.probe_rows,
+         "rows", rows28(sh, mul), rows28(sh, mul, True),
+         row_lanes * prows.rows_count(mul, row_steps),
+         (16 + (16 if sh == "full2d" else 1)) * 4 * row_lanes,
+         "scripts/microbench_rows.py:"
+         + {"row1d": "51", "row2d": "69", "full2d": "92"}[sh], False)
+        for sh, mul in prows.instances()]
+    probes28 += [
+        (f"probe_layout[{lay}]", playout.probe_layout, lay,
+         layout28(lay), layout28(lay, True),
+         playout.LANES * playout.layout_count(lay_r),
+         playout.BYTES_PER_LANE * playout.LANES,
+         "scripts/microbench_layout.py:75", False)
+        for lay in playout.LAYOUTS]
+    err28 = {}
+    small_plain = {}  # the vtile instances share one plain output
+    for rname, _, kind, run, plain, _, _, _, is_b in probes28:
+        small = inputs28[kind][0]
+        if kind == "rows":
+            want = plain(small, row_small)
+            got = run(tuple(t.to(dev) for t in small), row_small)
+        else:
+            key = kind if kind == "vtile" else rname
+            if key not in small_plain:
+                small_plain[key] = plain(small)
+            want = small_plain[key]
+            got = run(tuple(t.to(dev) for t in small))
+        torch.cuda.synchronize()
+        err28[rname] = max_abs_err(got.cpu(), want)
+        require(err28[rname] == 0, f"{rname} differs from its plain version "
+                f"at N={n28} ({err28[rname]})")
+        require(int((want != 0).sum()) > 0, f"{rname}: an all-zero output "
+                f"at N={n28} checks nothing")
+        if is_b:
+            got_b = fused.range_glv_match(
+                AddressFormat.P2PKH, *(t.to(dev) for t in small)).cpu()
+            require(torch.equal(got_b, want), f"{rname}: kernel B differs "
+                    f"at N={n28}")
+    log(f"[28] inputs built, {len(probes28)} instances == plain (on the "
+        f"CPU) at N={n28} (rows {row_small} steps; the tiles == kernel B) in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    for (rname, wrapper, kind, run, plain, count, nbytes, replaces,
+         is_b) in probes28:
+        args = inputs28[kind][1]
+        wrapper.launches = 0
+        ms = cuda_ms(lambda: run(args), 10)
+        launches28 = wrapper.launches
+        require(launches28 > 0, f"{rname} was not launched")
+        ref = run(args)
+        plain_ms = cuda_ms(lambda: plain_out.append(plain(args)), 1,
+                           warm=False)
+        err = max_abs_err(plain_out.pop(), ref)
+        require(err == 0, f"{rname} differs from its plain version at its "
+                "timed shape")
+        require(not is_b or torch.equal(ref, kernel_b[kind]),
+                f"{rname} differs from kernel B at its timed shape")
+        bms, bby = bound(count, nbytes, sm_clocks_per_s)
+        require(ms >= bms, f"{rname}: {ms:.4f} ms beats its bound "
+                f"{bms:.4f} ms: the model counts more than the work needs")
+        kernels.append({
+            "name": rname, "route": "cuda",
+            "source": "vgen_tpu_torch/probes/probes.cu",
+            "replaces": replaces, "launches": launches28,
+            "max_abs_err": max(err, err28[rname]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None,
+        })
+        torch.cuda.empty_cache()
+        log(f"[28] {rname}: {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bms:.4f} ms ({bby}, share {bms / ms:.2f}), bit-equal ({smi})")
+    log(f"[28] timed {len(probes28)} instances in {time.time() - t0:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -292,3 +292,81 @@ def test_probe_kernels_equal_plain(dev, case):
     want = run(a, b, reps)
     assert torch.equal(got.cpu(), want)
     assert not torch.equal(want, a)
+
+
+# The stage and geometry probes (vgen_tpu_torch/probes: profile_glv,
+# proto_vtile, microbench_rows, microbench_layout), every instance at N =
+# 4096 against its plain version on the CPU; the tile instances and full
+# also against kernel B on the card.
+GEOMETRY_N = 4096
+
+
+def _geometry_cases():
+    from vgen_tpu_torch.probes import microbench_layout as ml
+    from vgen_tpu_torch.probes import microbench_rows as mr
+    from vgen_tpu_torch.probes import profile_glv as pg
+    from vgen_tpu_torch.probes import proto_vtile as pv
+
+    cases = [(f"probe_glv_stage[{m}]", pg.probe_glv_stage, "stage",
+              lambda args, m=m: pg.probe_glv_stage(m, *args),
+              m in ("full", "fullr")) for m in pg.MODES]
+    cases += [(f"probe_vtile[{pv.instance_name(v, t)}]", pv.probe_vtile,
+               "vtile", lambda args, v=v, t=t: pv.probe_vtile(v, t, *args),
+               True) for v, t in pv.instances()]
+    cases += [(f"probe_rows[{mr.instance_name(s, m)}]", mr.probe_rows, "rows",
+               lambda args, s=s, m=m: mr.probe_rows(s, m, args[0], 256), False)
+              for s, m in mr.instances()]
+    cases += [(f"probe_layout[{lay}]", ml.probe_layout, "layout",
+               lambda args, lay=lay: ml.probe_layout(
+                   lay, ml.to_layout(args[0], lay),
+                   ml.to_layout(args[1], lay), 8), False)
+              for lay in ml.LAYOUTS]
+    return cases
+
+
+GEOMETRY_CASES = _geometry_cases()
+
+
+@pytest.fixture(scope="module")
+def geometry_inputs():
+    from vgen_tpu_torch.probes import microbench_layout as ml
+    from vgen_tpu_torch.probes import microbench_rows as mr
+    from vgen_tpu_torch.probes import profile_glv as pg
+    from vgen_tpu_torch.probes import proto_vtile as pv
+
+    return {"stage": pg.stage_inputs(GEOMETRY_N, "cpu", force=True),
+            "vtile": pv.vtile_inputs(GEOMETRY_N),
+            "rows": (mr.rows_inputs(GEOMETRY_N),),
+            "layout": ml.layout_inputs(GEOMETRY_N)}
+
+
+@pytest.mark.parametrize("case", GEOMETRY_CASES,
+                         ids=[c[0] for c in GEOMETRY_CASES])
+def test_geometry_probe_kernels_equal_plain(dev, geometry_inputs, case):
+    _, wrapper, kind, run, is_b = case
+    args = geometry_inputs[kind]
+    dargs = tuple(t.to(dev) for t in args)
+    before = wrapper.launches
+    got = run(dargs)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = run(args)
+    assert torch.equal(got.cpu(), want)
+    assert int((want != 0).sum()) > 0
+    if is_b:
+        assert torch.equal(got, fused.range_glv_match(AddressFormat.P2PKH,
+                                                      *dargs))
+
+
+@pytest.mark.parametrize("chain", [16, 32, 64, 128, 256])
+def test_kernel_a_chain_changes_no_value(dev, chain):
+    """Kernel A's chain length (the sweep of probes.sweep_inv_chain) leaves
+    its canonical output as it is."""
+    from vgen_tpu_torch.probes import common
+
+    tx = common.inputs(B, seed=73)[0]
+    bx = common.inputs(K, seed=74)[0].T.contiguous()
+    want = fused.batch_inverse_dx(bx, tx)
+    got = fused.batch_inverse_dx(bx.to(dev), tx.to(dev), chain=chain)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)

@@ -1,8 +1,11 @@
 """The probe kernels' per-thread bodies (``vgen_tpu_torch/probes/
-probe_lanes.cuh``, which call the production functions of ``csrc/``),
-compiled for the host with g++ as ``tests/test_torch_csrc_host.py`` does,
-against the plain versions over R repetitions, for every instance of
-``probe_primitive``, ``probe_issue`` and ``probe_fieldmul``.  On the host
+probe_lanes.cuh`` and ``geometry_lanes.cuh``, which call the production
+functions of ``csrc/``), compiled for the host with g++ as
+``tests/test_torch_csrc_host.py`` does, against the plain versions, for
+every instance of ``probe_primitive``, ``probe_issue`` and
+``probe_fieldmul`` (over R repetitions), ``probe_glv_stage``,
+``probe_vtile`` (over its grid of blocks), ``probe_rows`` and
+``probe_layout``.  On the host
 the PTX product of ``candidates.cuh`` is the production one; the card's
 PTX is held against the plain version by ``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``.  Exact: every value is an integer (or an f32 bit
@@ -20,14 +23,18 @@ from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgen_tpu_torch.csrc import build
 from vgen_tpu_torch.probes import common
 from vgen_tpu_torch.probes import microbench_fieldmul as fm
+from vgen_tpu_torch.probes import microbench_layout as ml
+from vgen_tpu_torch.probes import microbench_rows as mr
 from vgen_tpu_torch.probes import microbench_vpu as vpu
+from vgen_tpu_torch.probes import profile_glv as pg
+from vgen_tpu_torch.probes import proto_vtile as pv
 from vgen_tpu_torch.probes import roofline
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no host C++ compiler (g++)")
 
 HARNESS = r"""
-#include "probe_lanes.cuh"
+#include "geometry_lanes.cuh"
 using namespace vg;
 using namespace vg::probe;
 // per lane e < n of (8, n) limb-major a, b
@@ -80,7 +87,87 @@ void fieldmul(int m, const uint32_t* a, const uint32_t* b, uint32_t* out,
     });
   }
 }
+template <int M>
+void stage(int m, const uint32_t* bx, const uint32_t* by, const uint32_t* tx,
+           const uint32_t* ty, const uint32_t* inv, const uint32_t* lo,
+           const uint32_t* hi, int n_slots, const int32_t* rem, int32_t* out,
+           int K, int B) {
+  if constexpr (M < kNumGlvStages) {
+    if (m != M)
+      return stage<M + 1>(m, bx, by, tx, ty, inv, lo, hi, n_slots, rem, out,
+                          K, B);
+    const long N = (long)K * B;
+    for (long t = 0; t < N / kStageLanesPerThread<M>; t++)
+      glv_stage_thread<M>(bx, by, tx, ty, inv, lo, hi, n_slots, rem, out, B, N,
+                          t);
+  }
+}
+// the grid of probe_vtile: blocks of T threads, V keys each
+template <int C>
+void vtile(int v, int T, const uint32_t* bx, const uint32_t* by,
+           const uint32_t* tx, const uint32_t* ty, const uint32_t* inv,
+           const uint32_t* lo, const uint32_t* hi, int n_slots,
+           const int32_t* rem, int32_t* out, int K, int B) {
+  if constexpr (C < 3) {
+    constexpr int V = 1 << C;
+    if (v != V)
+      return vtile<C + 1>(v, T, bx, by, tx, ty, inv, lo, hi, n_slots, rem, out,
+                          K, B);
+    const long N = (long)K * B;
+    for (long block = 0; block * V * T < N; block++)
+      for (int t = 0; t < T; t++)
+        vtile_thread<V>(bx, by, tx, ty, inv, lo, hi, n_slots, rem, out, B, N,
+                        block, T, t);
+  }
+}
+template <int S, int Mu>
+void rows(int s, int mu, const uint32_t* x, uint32_t* out, long lanes,
+          int steps) {
+  if constexpr (S < kNumRowShapes) {
+    if constexpr (Mu > 1) {
+      return rows<S + 1, 0>(s, mu, x, out, lanes, steps);
+    } else {
+      if (s != S || mu != Mu)
+        return rows<S, Mu + 1>(s, mu, x, out, lanes, steps);
+      for (long e = 0; e < lanes; e++) {
+        uint32_t xs[16], r[16];
+        for (int i = 0; i < 16; i++) xs[i] = x[i * lanes + e];
+        rows_lane<S, Mu>(r, xs, steps);
+        for (int i = 0; i < (S == kFull2d ? 16 : 1); i++)
+          out[i * lanes + e] = r[i];
+      }
+    }
+  }
+}
+template <int L>
+void layout(int l, const uint32_t* a, const uint32_t* b, uint32_t* out,
+            long n, int reps) {
+  if constexpr (L < kNumLayouts) {
+    if (l != L) return layout<L + 1>(l, a, b, out, n, reps);
+    for (long e = 0; e < n; e++) layout_lane<L>(out, a, b, n, e, reps);
+  }
+}
 extern "C" {
+void h_stage(int m, const uint32_t* bx, const uint32_t* by, const uint32_t* tx,
+             const uint32_t* ty, const uint32_t* inv, const uint32_t* lo,
+             const uint32_t* hi, int n_slots, const int32_t* rem, int32_t* out,
+             int K, int B) {
+  stage<0>(m, bx, by, tx, ty, inv, lo, hi, n_slots, rem, out, K, B);
+}
+void h_vtile(int v, int T, const uint32_t* bx, const uint32_t* by,
+             const uint32_t* tx, const uint32_t* ty, const uint32_t* inv,
+             const uint32_t* lo, const uint32_t* hi, int n_slots,
+             const int32_t* rem, int32_t* out, int K, int B) {
+  vtile<0>(v, T, bx, by, tx, ty, inv, lo, hi, n_slots, rem, out, K, B);
+}
+void h_rows(int s, int mu, const uint32_t* x, uint32_t* out, int lanes,
+            int steps) {
+  rows<0, 0>(s, mu, x, out, lanes, steps);
+}
+void h_layout(int l, const uint32_t* a, const uint32_t* b, uint32_t* out,
+              int n, int reps) {
+  layout<0>(l, a, b, out, n, reps);
+}
 void h_primitive(int p, const uint32_t* a, const uint32_t* b,
                  const int32_t* table, uint32_t* out, int n, int reps) {
   primitive<0>(p, a, b, table, out, n, reps);
@@ -111,7 +198,11 @@ def lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (("h_primitive", [i, p, p, p, p, i, i]),
                        ("h_issue", [i, i, p, p, p, i, i]),
-                       ("h_fieldmul", [i, p, p, p, i, i])):
+                       ("h_fieldmul", [i, p, p, p, i, i]),
+                       ("h_stage", [i, p, p, p, p, p, p, p, i, p, p, i, i]),
+                       ("h_vtile", [i, i, p, p, p, p, p, p, p, i, p, p, i, i]),
+                       ("h_rows", [i, i, p, p, i, i]),
+                       ("h_layout", [i, p, p, p, i, i])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, None
     return lib
@@ -188,3 +279,80 @@ def test_instance_codes_follow_the_header():
     assert f"kIssueUnroll = {vpu.UNROLL};" in src
     assert f"kDfaStates = {roofline.DFA_STATES};" in src
     assert np.all(roofline.dfa_table().numpy() < roofline.DFA_STATES)
+
+
+def _interval_call(fn, codes, args):
+    """Call a host body with kernel B's arguments -> the (K, B) mask."""
+    bx, by, tx, ty, inv, lo, hi, rem = args
+    K, B = bx.shape[0], tx.shape[1]
+    out = torch.empty((K, B), dtype=torch.int32)
+    fn(*codes, *(_ptr(t) for t in (bx, by, tx, ty, inv, lo, hi)), lo.shape[0],
+       _ptr(rem), _ptr(out), K, B)
+    return out
+
+
+@pytest.fixture(scope="module")
+def stage_args():
+    return pg.stage_inputs(N, "cpu", force=True)
+
+
+@pytest.mark.parametrize("mode", list(pg.MODES))
+def test_stage_body_equals_plain(lib, stage_args, mode):
+    got = _interval_call(lib.h_stage, (pg.MODES[mode],), stage_args)
+    want = pg.probe_glv_stage(mode, *stage_args)
+    assert torch.equal(got, want)
+    assert int((want != 0).sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def vtile_case():
+    args = pv.vtile_inputs(N)
+    return args, pv.probe_vtile_plain(*args)
+
+
+@pytest.mark.parametrize("v,t", pv.instances(),
+                         ids=[pv.instance_name(*i) for i in pv.instances()])
+def test_vtile_body_equals_plain(lib, vtile_case, v, t):
+    """The grid of V keys per thread over blocks of T threads covers each
+    lane once, partial tiles included (N = 128 < V T for most)."""
+    args, want = vtile_case
+    got = _interval_call(lib.h_vtile, (v, t), args)
+    assert torch.equal(got, want)
+    assert int((want != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("shape,mul", mr.instances(),
+                         ids=[mr.instance_name(*i) for i in mr.instances()])
+def test_rows_body_equals_plain(lib, shape, mul):
+    x, steps = mr.rows_inputs(N), 2 * mr.UNROLL
+    want = mr.probe_rows(shape, mul, x, steps)
+    got = torch.empty_like(want)
+    lib.h_rows(mr.SHAPES[shape], int(mul), _ptr(x), _ptr(got), N, steps)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lay", list(ml.LAYOUTS))
+def test_layout_body_equals_plain(lib, lay):
+    a, b = (ml.to_layout(t, lay) for t in ml.layout_inputs(N))
+    reps = 3
+    want = ml.probe_layout(lay, a, b, reps)
+    got = torch.empty_like(a)
+    lib.h_layout(ml.LAYOUTS[lay], _ptr(a), _ptr(b), _ptr(got), N, reps)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, a)
+
+
+def test_geometry_codes_follow_the_header():
+    """The stage, row and layout tables' template codes are the enums'
+    order in geometry_lanes.cuh."""
+    src = (build.PROBES / "geometry_lanes.cuh").read_text()
+
+    def enum(name):
+        body = src.split(f"enum {name} {{")[1].split("}")[0]
+        return [w.strip() for w in body.replace("\n", " ").split(",")
+                if w.strip()][:-1]
+
+    for name, table in (("GlvStage", pg.MODES), ("RowShape", mr.SHAPES),
+                        ("Layout", ml.LAYOUTS)):
+        assert list(table.values()) == list(range(len(enum(name)))), name
+    assert f"kRowUnroll = {mr.UNROLL};" in src

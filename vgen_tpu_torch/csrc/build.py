@@ -163,6 +163,13 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 "vgen_probe_primitive": [i, p, p, p, p, i, i, p],
                 "vgen_probe_issue": [i, i, p, p, p, i, i, p],
                 "vgen_probe_fieldmul": [i, p, p, p, i, i, p],
+                "vgen_probe_glv_stage": [i, p, p, p, p, p, p, p, i, p, p, i,
+                                         i, p],
+                "vgen_probe_vtile": [i, i, p, p, p, p, p, p, p, i, p, p, i, i,
+                                     p],
+                "vgen_probe_rows": [i, i, p, p, i, i, i, p],
+                "vgen_probe_rows_blocks_per_sm": [i, i, i],
+                "vgen_probe_layout": [i, p, p, p, i, i, p],
             },
         }
         for u in group:

@@ -136,9 +136,12 @@ def batch_inverse_dx_plain(bx: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
     return u256.to_i32(inv.reshape(8, K * B))
 
 
-def batch_inverse_dx(bx: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
+def batch_inverse_dx(bx: torch.Tensor, tx: torch.Tensor,
+                     chain: int = INV_CHAIN) -> torch.Tensor:
     """Kernel A (``csrc/kernels.cu``): same contract as
-    ``batch_inverse_dx_plain``, one launch for all K*B lanes."""
+    ``batch_inverse_dx_plain``, one launch for all K*B lanes, each thread
+    a chain of the largest power of two <= ``chain`` that divides K*B
+    (the output is canonical, so the chain changes no value)."""
     if _all_cpu(bx, tx):
         return batch_inverse_dx_plain(bx, tx)
     K, B = bx.shape[0], tx.shape[1]
@@ -148,8 +151,8 @@ def batch_inverse_dx(bx: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
     scratch = torch.empty_like(out)
     with torch.cuda.device(dev):
         _launch("kernels", "batch_inverse_dx", bx.data_ptr(), tx.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), K, B, _chain_len(K * B),
-                _stream(dev))
+                out.data_ptr(), scratch.data_ptr(), K, B,
+                _chain_len(K * B, chain), _stream(dev))
     batch_inverse_dx.launches += 1
     return out
 

@@ -57,7 +57,11 @@ The counts, per lane:
 - inversion: 255 squarings and 15 multiplies;
 - a DFA step: the index's multiply-add and the load;
 - an interval compare of W words against S slots: a subtract with borrow
-  per word against lo and against hi, and one combine, per slot.
+  per word against lo and against hi, and one combine, per slot;
+- the column form of the multiply: the 8x8 product's halves into 16
+  columns with no carry, a carry pass, then the fold;
+- a step of a row chain: an add, a rotate and a XOR, or one 32-bit
+  multiply-add (IMAD, not a 32x32 -> 64 one).
 """
 
 from __future__ import annotations
@@ -83,6 +87,19 @@ FE_ADD = ops(0, 0, 16)
 # carry add per partial product) and the fold with its subtract of p
 FE_MUL_WIDE = ops(64, 0, 2 * 64)
 FE_FOLD = FE_MUL - FE_MUL_WIDE
+# the column form of the multiply (candidates.cuh): the 64 products'
+# halves summed into 16 columns with no carry (a multiply-add and two
+# adds each), one carry pass (two per column), the production fold
+FE_MUL_COLS = ops(64, 0, 64 + 2 * 64)
+FE_CARRY_COLS = ops(0, 0, 2 * 16)
+FE_MUL_COLSUM = FE_MUL_COLS + FE_CARRY_COLS + FE_FOLD
+# kernel B's x-only finish: lambda = (ty - by) inv, x = lambda^2 - bx - tx
+# (one multiply, one squaring, four subtractions)
+FINISH_X = FE_MUL + FE_SQR + 4 * FE_ADD
+# the row chains' steps: (r + x) ^ rotl(r, 7) as IADD3, SHF and LOP3 (the
+# rotate and the XOR ALU-only), r * x + 1 as one 32-bit IMAD
+ROW_STEP = ops(0, 2, 3)
+ROW_MUL_STEP = ops(0, 0, 1)
 
 
 def _adds(operands):

@@ -2,8 +2,9 @@
 // beside the production ones (csrc/field.cuh): a dedicated squaring, the
 // 512-bit product written in PTX carry chains, and the product split into
 // column sums with no carry and a separate carry pass (the TPU's
-// "nocarry" form).  Like the headers in csrc/ this compiles as plain C++
-// too; there the PTX product is the production one.
+// "nocarry" form), and the whole multiply in that form.  Like the headers
+// in csrc/ this compiles as plain C++ too; there the PTX product is the
+// production one.
 #pragma once
 
 #include "field.cuh"
@@ -119,6 +120,18 @@ VG_FN uint32_t fe_carry_cols(uint32_t t[16], const u64 cols[16]) {
     c >>= 32;
   }
   return (uint32_t)c;
+}
+
+// r = a * b mod p in the column form: the column sums, one carry pass (the
+// product is below 2^512, so nothing carries out), then the production
+// fold.  r may alias a or b.
+VG_FN void fe_mul_colsum(uint32_t r[8], const uint32_t a[8],
+                          const uint32_t b[8]) {
+  u64 cols[16];
+  uint32_t t[16];
+  fe_mul_cols_nocarry(cols, a, b);
+  fe_carry_cols(t, cols);
+  fe_reduce512(r, t);
 }
 
 }  // namespace vg

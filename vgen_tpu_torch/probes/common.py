@@ -1,5 +1,5 @@
-"""What the three probe kernels share: their inputs, the plain versions'
-fold and 32-bit multiply, and the wrappers' checks and launch.
+"""What the probe kernels share: their inputs, the plain versions' fold
+and 32-bit multiply, and the wrappers' checks and launch.
 
 A probe's inputs are a, b: (8, N) int32 limb-major arrays of field
 elements below p (the layout of kernels A to I), made from a numpy seed.
@@ -85,3 +85,18 @@ def launch(entry: str, dev: torch.device, *args) -> None:
         rc = getattr(lib, f"vgen_{entry}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: kernel launch failed, cudaError {rc}")
+
+
+def launch_interval(entry: str, codes, args) -> torch.Tensor:
+    """Launch vgen_<entry>, a kernel with kernel B's contract (bx, by, tx,
+    ty, inv, lo, hi, remaining: ``fused.range_glv_match``), after its
+    instance's template ``codes`` -> the (K, B) int32 mask."""
+    from vgen_tpu_torch.ops import fused
+
+    bx, tx, lo, remaining = args[0], args[2], args[5], args[7]
+    K, B = bx.shape[0], tx.shape[1]
+    dev = fused._interval_specs(entry, *args)
+    out = torch.empty((K, B), dtype=torch.int32, device=dev)
+    launch(entry, dev, *codes, *(t.data_ptr() for t in args[:7]),
+           lo.shape[0], remaining.data_ptr(), out.data_ptr(), K, B)
+    return out

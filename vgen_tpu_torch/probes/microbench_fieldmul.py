@@ -35,9 +35,9 @@ from vgen_tpu_torch.probes import common, roofline, timing
 # of one repetition)
 MODES = {
     "mul_wide": (0, bm.FE_MUL_WIDE),
-    "nocarry": (1, bm.ops(64, 0, 64 + 2 * 64)),
+    "nocarry": (1, bm.FE_MUL_COLS),
     "fold": (2, bm.FE_FOLD),
-    "carry": (3, bm.ops(0, 0, 2 * 16)),
+    "carry": (3, bm.FE_CARRY_COLS),
     "ptx_mul": (4, bm.FE_MUL),
     "sha256": (5, bm.SHA256),
     "ripemd160": (6, bm.RIPEMD160),

@@ -1,7 +1,6 @@
-// The three probe kernels, for the measurement tools of
+// The seven probe kernels, for the measurement tools of
 // vgen_tpu_torch/probes (never launched by a scan).  They replace the
-// TPU probes of scripts/ that ask what an instruction or a primitive
-// costs:
+// TPU probes of scripts/:
 //
 // - probe_primitive<kPrim>: scripts/roofline.py:162 (make, body _body,
 //   feedback _feedback): R dependent repetitions of one production
@@ -9,18 +8,34 @@
 // - probe_issue<kOp, kChains>: scripts/microbench_vpu.py:66 (make): R
 //   repetitions of one instruction in kChains dependent chains per lane;
 // - probe_fieldmul<kMode>: scripts/microbench_fieldmul.py:120 (make): R
-//   repetitions of one part of the field multiply or one hash.
+//   repetitions of one part of the field multiply or one hash;
+// - probe_glv_stage<kMode>: scripts/profile_glv.py:165 (make_kernel :87):
+//   kernel B's P2PKH lane cut down by stage, to split B's time;
+// - probe_vtile<kKeysPerThread>: scripts/proto_vtile.py:65
+//   (make_vtile_range_glv :40): kernel B's P2PKH lane over blocks of T
+//   threads and V keys per thread;
+// - probe_rows<kShape, kMul>: scripts/microbench_rows.py:51, :69, :92
+//   (make_row1d, make_row2d, make_full2d): one dependent chain per lane
+//   over two block shapes, or 16 independent chains;
+// - probe_layout<kLayout>: scripts/microbench_layout.py:75 (make :60): R
+//   chained field multiplies with the operands in one of four layouts.
 //
 // The TPU probes timed (16, 8, 512) VMEM tiles of 16-bit limbs and
 // one-hot matmuls; here a lane is one thread on 32-bit limbs, the layout
-// of kernels A to I, and the DFA step is a table load.  Each kernel is
-// bound by its repetitions' operations (the loads and stores are two
-// (8, N) reads and one write), which is what it measures.  Built into
-// its own library (csrc/build.py unit "probes"), so the product's units
-// do not grow.
+// of kernels A to I, and the DFA step is a table load.  The first three
+// are bound by their repetitions' operations (the loads and stores are
+// two (8, N) reads and one write), which is what they measure.  The stage
+// and tile probes are bound as kernel B is, by the hashes' ALU work (96
+// bytes read and 4 written per lane); the row chains by their add, rotate
+// and XOR (or multiply) per step, and by the latency of one dependent
+// chain where too few warps run; the layout probe by its multiplies at R
+// = 8 and by its 96 bytes per lane at R = 1.  Built into its own library
+// (csrc/build.py unit "probes"), so the product's units do not grow.
 #include <cuda_runtime.h>
 
-#include "probe_lanes.cuh"
+#include <type_traits>
+
+#include "geometry_lanes.cuh"
 
 namespace {
 
@@ -66,90 +81,292 @@ __global__ void probe_fieldmul(const uint32_t* a_in, const uint32_t* b_in,
   fe_store(out, n, e, r);
 }
 
-unsigned blocks(long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
-
-template <int kPrim>
-int launch_primitive(int prim, const uint32_t* a, const uint32_t* b,
-                     const int32_t* table, uint32_t* out, long n, int reps,
-                     cudaStream_t stream) {
-  if constexpr (kPrim == kNumPrimitives) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    if (prim != kPrim)
-      return launch_primitive<kPrim + 1>(prim, a, b, table, out, n, reps,
-                                         stream);
-    probe_primitive<kPrim><<<blocks(n), kBlock, 0, stream>>>(a, b, table, out,
-                                                             n, reps);
-    return (int)cudaGetLastError();
+// kernel B's staging of the interval table (at most 8 slots)
+__device__ __forceinline__ void stage_intervals(uint32_t* s_lo, uint32_t* s_hi,
+                                                const uint32_t* lo,
+                                                const uint32_t* hi,
+                                                int n_slots) {
+  for (int i = threadIdx.x + threadIdx.y * blockDim.x; i < n_slots * 5;
+       i += blockDim.x * blockDim.y) {
+    s_lo[i] = lo[i];
+    s_hi[i] = hi[i];
   }
-}
-
-template <int kOp, int kChains>
-int launch_issue_chains(int chains, const uint32_t* a, const uint32_t* b,
-                        uint32_t* out, long n, int reps, cudaStream_t stream) {
-  if constexpr (kChains > 8) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    if (chains != kChains)
-      return launch_issue_chains<kOp, 2 * kChains>(chains, a, b, out, n, reps,
-                                                   stream);
-    probe_issue<kOp, kChains><<<blocks(n), kBlock, 0, stream>>>(a, b, out, n,
-                                                                reps);
-    return (int)cudaGetLastError();
-  }
-}
-
-template <int kOp>
-int launch_issue(int op, int chains, const uint32_t* a, const uint32_t* b,
-                 uint32_t* out, long n, int reps, cudaStream_t stream) {
-  if constexpr (kOp == kNumIssueOps) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    if (op != kOp)
-      return launch_issue<kOp + 1>(op, chains, a, b, out, n, reps, stream);
-    return launch_issue_chains<kOp, 1>(chains, a, b, out, n, reps, stream);
-  }
+  __syncthreads();
 }
 
 template <int kMode>
-int launch_fieldmul(int mode, const uint32_t* a, const uint32_t* b,
-                    uint32_t* out, long n, int reps, cudaStream_t stream) {
-  if constexpr (kMode == kNumFieldMulModes) {
+__global__ void __launch_bounds__(kStageThreads)
+    probe_glv_stage(const uint32_t* __restrict__ bx,
+                    const uint32_t* __restrict__ by,
+                    const uint32_t* __restrict__ tx,
+                    const uint32_t* __restrict__ ty,
+                    const uint32_t* __restrict__ inv,
+                    const uint32_t* __restrict__ lo,
+                    const uint32_t* __restrict__ hi, int n_slots,
+                    const int32_t* __restrict__ remaining,
+                    int32_t* __restrict__ out, long B, long N) {
+  __shared__ uint32_t s_lo[8 * 5], s_hi[8 * 5];
+  stage_intervals(s_lo, s_hi, lo, hi, n_slots);
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= N / kStageLanesPerThread<kMode>) return;
+  glv_stage_thread<kMode>(bx, by, tx, ty, inv, s_lo, s_hi, n_slots, remaining,
+                          out, B, N, t);
+}
+
+template <int kKeysPerThread>
+__global__ void __launch_bounds__(kVtileMaxThreads)
+    probe_vtile(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
+                const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
+                const uint32_t* __restrict__ inv,
+                const uint32_t* __restrict__ lo,
+                const uint32_t* __restrict__ hi, int n_slots,
+                const int32_t* __restrict__ remaining,
+                int32_t* __restrict__ out, long B, long N) {
+  __shared__ uint32_t s_lo[8 * 5], s_hi[8 * 5];
+  stage_intervals(s_lo, s_hi, lo, hi, n_slots);
+  vtile_thread<kKeysPerThread>(bx, by, tx, ty, inv, s_lo, s_hi, n_slots,
+                               remaining, out, B, N, blockIdx.x, blockDim.x,
+                               threadIdx.x);
+}
+
+// x (16, lanes) -> out (1, lanes), or (16, lanes) for full2d; the lane of
+// a thread counts along x, then y (row2d's blocks are (128, T / 128)).  The
+// one-chain shapes hold 17 live words, so two blocks of 1024 threads fit
+// an SM (32 registers a thread: 16 warps per scheduler); full2d's 32 words
+// do not.
+template <int kShape, int kMul>
+__global__ void __launch_bounds__(kRowThreads, kShape == kFull2d ? 1 : 2)
+    probe_rows(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+               long lanes, int steps) {
+  const long lane = (long)blockIdx.x * (blockDim.x * blockDim.y) +
+                    threadIdx.y * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  uint32_t xs[16], r[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) xs[i] = x[i * lanes + lane];
+  rows_lane<kShape, kMul>(r, xs, steps);
+#pragma unroll
+  for (int i = 0; i < (kShape == kFull2d ? 16 : 1); i++)
+    out[i * lanes + lane] = r[i];
+}
+
+template <int kLayout>
+__global__ void probe_layout(const uint32_t* __restrict__ a,
+                             const uint32_t* __restrict__ b,
+                             uint32_t* __restrict__ out, long n, int reps) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  layout_lane<kLayout>(out, a, b, n, e, reps);
+}
+
+unsigned blocks(long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
+
+// f(std::integral_constant<int, code>) for code in [kFirst, kEnd), or
+// cudaErrorInvalidValue for another code
+template <int kFirst, int kEnd, class F>
+int dispatch(int code, F&& f) {
+  if constexpr (kFirst >= kEnd) {
     return (int)cudaErrorInvalidValue;
   } else {
-    if (mode != kMode)
-      return launch_fieldmul<kMode + 1>(mode, a, b, out, n, reps, stream);
-    probe_fieldmul<kMode><<<blocks(n), kBlock, 0, stream>>>(a, b, out, n,
-                                                            reps);
-    return (int)cudaGetLastError();
+    if (code == kFirst) return f(std::integral_constant<int, kFirst>{});
+    return dispatch<kFirst + 1, kEnd>(code, f);
   }
+}
+
+// k where v = 2^k, k < n; -1 otherwise (the template code of a count of
+// chains or keys per thread)
+int pow2_code(int v, int n) {
+  for (int k = 0; k < n; k++)
+    if (v == 1 << k) return k;
+  return -1;
+}
+
+int launch_primitive(int prim, const void* a, const void* b,
+                     const void* table, void* out, int n, int reps,
+                     void* stream) {
+  return dispatch<0, kNumPrimitives>(prim, [&](auto p) {
+    probe_primitive<decltype(p)::value>
+        <<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)a, (const uint32_t*)b, (const int32_t*)table,
+            (uint32_t*)out, n, reps);
+    return (int)cudaGetLastError();
+  });
+}
+
+// kChains 1, 2, 4 or 8
+int launch_issue(int op, int chains, const void* a, const void* b, void* out,
+                 int n, int reps, void* stream) {
+  return dispatch<0, kNumIssueOps>(op, [&](auto o) {
+    return dispatch<0, 4>(pow2_code(chains, 4), [&](auto c) {
+      probe_issue<decltype(o)::value, 1 << decltype(c)::value>
+          <<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
+              (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n,
+              reps);
+      return (int)cudaGetLastError();
+    });
+  });
+}
+
+int launch_fieldmul(int mode, const void* a, const void* b, void* out, int n,
+                    int reps, void* stream) {
+  return dispatch<0, kNumFieldMulModes>(mode, [&](auto m) {
+    probe_fieldmul<decltype(m)::value>
+        <<<blocks(n), kBlock, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, reps);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Kernel B's contract (csrc/kernels.cu vgen_range_glv_match) for P2PKH:
+// bx, by (K, 8); tx, ty (8, B); inv (8, K*B); lo, hi (n_slots, 5), n_slots
+// <= 8; remaining (K,) -> out (K, B) int32.  probe_glv_stage: mode a
+// GlvStage (K*B even for the two-lane modes).  probe_vtile: V =
+// keys_per_thread in {1, 2, 4}, T = threads in [32, 512] a multiple of 32.
+int launch_glv_stage(int mode, const void* bx, const void* by, const void* tx,
+                     const void* ty, const void* inv, const void* lo,
+                     const void* hi, int n_slots, const void* remaining,
+                     void* out, int K, int B, void* stream) {
+  const long N = (long)K * B;
+  return dispatch<0, kNumGlvStages>(mode, [&](auto m) {
+    constexpr int kMode = decltype(m)::value;
+    const long threads = N / kStageLanesPerThread<kMode>;
+    probe_glv_stage<kMode><<<(unsigned)((threads + kStageThreads - 1) /
+                                        kStageThreads),
+                             kStageThreads, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
+        (const uint32_t*)ty, (const uint32_t*)inv, (const uint32_t*)lo,
+        (const uint32_t*)hi, n_slots, (const int32_t*)remaining, (int32_t*)out,
+        (long)B, N);
+    return (int)cudaGetLastError();
+  });
+}
+
+int launch_vtile(int keys_per_thread, int threads, const void* bx,
+                 const void* by, const void* tx, const void* ty,
+                 const void* inv, const void* lo, const void* hi, int n_slots,
+                 const void* remaining, void* out, int K, int B,
+                 void* stream) {
+  const long N = (long)K * B;
+  if (threads < 32 || threads > kVtileMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<0, 3>(pow2_code(keys_per_thread, 3), [&](auto c) {
+    constexpr int kKeys = 1 << decltype(c)::value;
+    const long tile = (long)kKeys * threads;
+    probe_vtile<kKeys><<<(unsigned)((N + tile - 1) / tile), threads, 0,
+                         (cudaStream_t)stream>>>(
+        (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
+        (const uint32_t*)ty, (const uint32_t*)inv, (const uint32_t*)lo,
+        (const uint32_t*)hi, n_slots, (const int32_t*)remaining, (int32_t*)out,
+        (long)B, N);
+    return (int)cudaGetLastError();
+  });
+}
+
+// x (16, lanes) uint32 -> out (1, lanes), or (16, lanes) for full2d (shape
+// a RowShape, mul 0 or 1); steps a multiple of 64; threads per block a
+// multiple of 128 up to 1024, laid out (128, threads / 128) for row2d.
+int launch_rows(int shape, int mul, const void* x, void* out, int lanes,
+                int steps, int threads, void* stream) {
+  if (threads < 128 || threads > kRowThreads || threads % 128 ||
+      steps % kRowUnroll)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<0, kNumRowShapes>(shape, [&](auto s) {
+    return dispatch<0, 2>(mul, [&](auto m) {
+      constexpr int kShape = decltype(s)::value;
+      const dim3 block = kShape == kRow2d ? dim3(128, threads / 128)
+                                          : dim3(threads);
+      probe_rows<kShape, decltype(m)::value>
+          <<<(unsigned)((lanes + threads - 1) / threads), block, 0,
+             (cudaStream_t)stream>>>((const uint32_t*)x, (uint32_t*)out,
+                                     (long)lanes, steps);
+      return (int)cudaGetLastError();
+    });
+  });
+}
+
+// Blocks of `threads` threads of probe_rows<shape, mul> one SM holds at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the
+// cudaError.
+int rows_blocks_per_sm(int shape, int mul, int threads) {
+  int blocks = 0;
+  const int rc = dispatch<0, kNumRowShapes>(shape, [&](auto s) {
+    return dispatch<0, 2>(mul, [&](auto m) {
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, probe_rows<decltype(s)::value, decltype(m)::value>,
+          threads, 0);
+    });
+  });
+  return rc != 0 ? -rc : blocks;
+}
+
+// a, b, out: n lanes of 8 uint32 limbs each in layout `layout` (a Layout;
+// n a multiple of 128) -> out = a after R repetitions of a = a * b mod p,
+// b ^= a, in the same layout.
+int launch_layout(int layout, const void* a, const void* b, void* out, int n,
+                  int reps, void* stream) {
+  return dispatch<0, kNumLayouts>(layout, [&](auto l) {
+    probe_layout<decltype(l)::value><<<blocks(n), kBlock, 0,
+                                       (cudaStream_t)stream>>>(
+        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, reps);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
-// C entry points: a, b, out (8, n) uint32 limb-major on the card; the
-// DFA table (64, W) int32 (read by the dfachar instances only).  Each
-// launches on the caller's stream and returns cudaGetLastError().
+// C entry points.  probe_primitive, probe_issue, probe_fieldmul: a, b, out
+// (8, n) uint32 limb-major on the card; the DFA table (64, W) int32 (read
+// by the dfachar instances only).  The other four: see their launchers
+// above.  Each launches on the caller's stream and returns
+// cudaGetLastError().
 extern "C" {
 
 int vgen_probe_primitive(int prim, const void* a, const void* b,
                          const void* table, void* out, int n, int reps,
                          void* stream) {
-  return launch_primitive<0>(prim, (const uint32_t*)a, (const uint32_t*)b,
-                             (const int32_t*)table, (uint32_t*)out, n, reps,
-                             (cudaStream_t)stream);
+  return launch_primitive(prim, a, b, table, out, n, reps, stream);
 }
 
 int vgen_probe_issue(int op, int chains, const void* a, const void* b,
                      void* out, int n, int reps, void* stream) {
-  return launch_issue<0>(op, chains, (const uint32_t*)a, (const uint32_t*)b,
-                         (uint32_t*)out, n, reps, (cudaStream_t)stream);
+  return launch_issue(op, chains, a, b, out, n, reps, stream);
 }
 
 int vgen_probe_fieldmul(int mode, const void* a, const void* b, void* out,
                         int n, int reps, void* stream) {
-  return launch_fieldmul<0>(mode, (const uint32_t*)a, (const uint32_t*)b,
-                            (uint32_t*)out, n, reps, (cudaStream_t)stream);
+  return launch_fieldmul(mode, a, b, out, n, reps, stream);
+}
+
+int vgen_probe_glv_stage(int mode, const void* bx, const void* by,
+                         const void* tx, const void* ty, const void* inv,
+                         const void* lo, const void* hi, int n_slots,
+                         const void* remaining, void* out, int K, int B,
+                         void* stream) {
+  return launch_glv_stage(mode, bx, by, tx, ty, inv, lo, hi, n_slots,
+                          remaining, out, K, B, stream);
+}
+
+int vgen_probe_vtile(int keys_per_thread, int threads, const void* bx,
+                     const void* by, const void* tx, const void* ty,
+                     const void* inv, const void* lo, const void* hi,
+                     int n_slots, const void* remaining, void* out, int K,
+                     int B, void* stream) {
+  return launch_vtile(keys_per_thread, threads, bx, by, tx, ty, inv, lo, hi,
+                      n_slots, remaining, out, K, B, stream);
+}
+
+int vgen_probe_rows(int shape, int mul, const void* x, void* out, int lanes,
+                    int steps, int threads, void* stream) {
+  return launch_rows(shape, mul, x, out, lanes, steps, threads, stream);
+}
+
+int vgen_probe_rows_blocks_per_sm(int shape, int mul, int threads) {
+  return rows_blocks_per_sm(shape, mul, threads);
+}
+
+int vgen_probe_layout(int layout, const void* a, const void* b, void* out,
+                      int n, int reps, void* stream) {
+  return launch_layout(layout, a, b, out, n, reps, stream);
 }
 
 }  // extern "C"

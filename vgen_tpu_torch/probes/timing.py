@@ -36,8 +36,10 @@ def smi_query(fields: str) -> str:
 
 class Card:
     """The card the tools measure: name and power limit as nvidia-smi
-    gives them (printed beside every number) and SM count.  Raises SystemExit where no CUDA card is visible: the tools
-    measure the card and nothing else."""
+    gives them (printed beside every number), SM count, and SM clocks per
+    second at the maximum SM clock (the bound model's).  Raises SystemExit
+    where no CUDA card is visible: the tools measure the card and nothing
+    else."""
 
     def __init__(self):
         if not torch.cuda.is_available():
@@ -47,6 +49,8 @@ class Card:
         self.smi = smi_query("name,power.limit")
         self.sm_count = torch.cuda.get_device_properties(
             self.device).multi_processor_count
+        self.sm_clocks_per_s = (self.sm_count * 1e6
+                                * float(smi_query("clocks.max.sm").split()[0]))
 
     def tag(self) -> str:
         return f"({self.smi})"
@@ -103,6 +107,14 @@ def event_ms(fn: Callable[[], object]) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
+
+
+def launch_ms(fn: Callable[[], object], reps: int = 10) -> float:
+    """Milliseconds per call of fn(): the best of five event-timed runs of
+    ``reps`` calls back to back, after one warm-up call."""
+    fn()
+    return min(event_ms(lambda: [fn() for _ in range(reps)])
+               for _ in range(5)) / reps
 
 
 def delta_ms(run: Callable[[int], object], reps: int):
@@ -189,6 +201,14 @@ def loop_opcodes(sass: str) -> Counter:
                    if best[0] <= addr <= best[1])
 
 
+def template_args(kernel: str, mangled: str) -> Optional[tuple]:
+    """The integer template arguments of an instance of the kernel template
+    ``kernel`` from its mangled name, or None for another function."""
+    m = re.search(kernel + r"I((?:Li\d+E)+)E", mangled)
+    return (tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1)))
+            if m else None)
+
+
 def kernel_loops(library: str, kernel: str) -> Dict[tuple, Counter]:
     """{template arguments: loop opcode counts} for every instance of the
     kernel template ``kernel`` in the library, from ``cuobjdump -sass``."""
@@ -196,12 +216,55 @@ def kernel_loops(library: str, kernel: str) -> Dict[tuple, Counter]:
                          text=True, check=True, timeout=300).stdout
     loops = {}
     for part in out.split("Function : ")[1:]:
-        name = part.split(None, 1)[0]
-        m = re.search(kernel + r"I((?:Li\d+E)+)E", name)
-        if m:
-            args = tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1)))
+        args = template_args(kernel, part.split(None, 1)[0])
+        if args is not None:
             loops[args] = loop_opcodes(part)
     return loops
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_figures(log: str, kernel: str) -> Dict[tuple, Dict[str, int]]:
+    """{template arguments: {regs, stack, spill_stores, spill_loads}} of
+    every instance of the kernel template ``kernel`` in an nvcc log of
+    ``-Xptxas -v`` (``build.build_log``)."""
+    figures, current = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            current = template_args(kernel, m.group(1))
+            if current is not None:
+                figures[current] = {}
+            continue
+        if current is None:
+            continue
+        m = _STACK.search(line)
+        if m:
+            figures[current].update(zip(("stack", "spill_stores",
+                                         "spill_loads"),
+                                        map(int, m.groups())))
+        m = _REGS.search(line)
+        if m:
+            figures[current]["regs"] = int(m.group(1))
+    return figures
+
+
+def ptxas_text(fig: Optional[Dict[str, int]]) -> str:
+    if not fig:
+        return "not in the build log"
+    text = f"{fig.get('regs', '?')} regs"
+    if fig.get("stack"):
+        text += f", {fig['stack']} B stack"
+    if fig.get("spill_stores") or fig.get("spill_loads"):
+        text += (f", spills {fig.get('spill_stores', 0)} B stored / "
+                 f"{fig.get('spill_loads', 0)} B loaded")
+    else:
+        text += ", no spill"
+    return text
 
 
 def opcode_text(counts: Counter, per: int = 1) -> str:
