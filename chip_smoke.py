@@ -9,7 +9,9 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 2. build the CUDA kernels from vgen_tpu_torch/csrc (nvcc, sm_90a);
 3. kernel A (batch_inverse_dx) against its plain PyTorch version: random
    canonical inputs from a numpy seed, K = 2, B = 8192, one forced zero-dx
-   lane; bit-equal, and x * inv = 1 (mod p) on 64 sampled lanes;
+   lane; bit-equal at the product's geometry (chains of M, groups of G
+   threads sharing an inversion, ``fused.INV_GEOMETRY``) and at (64, 1),
+   one inversion per thread; x * inv = 1 (mod p) on 64 sampled lanes;
 4. kernel B (range_glv_match) and the pack tail against the plain versions
    on CPU: real i*G table and base points, pattern ^1C, K = 2, B = 8192;
    masks and packed rows bit-equal;
@@ -17,7 +19,8 @@ Phases (each prints what it found; any failure raises and exits non-zero):
    (P2PKH, B = 524288, k_sub = 8); every match re-derived by the
    vgen_tpu_torch.crypto oracle; both kernels' launch counters > 0 in that run;
 6. kernels A and B and their plain versions timed at the main path's shape
-   (K = 8, B = 524288) with CUDA events, outputs compared again;
+   (K = 8, B = 524288) with CUDA events, outputs compared again; kernel A
+   also at (M, G) = (64, 1), once, beside the product's geometry;
 7. a timed benchmark_device run (^1BenchNeverMatches, about 10 s);
 8. kernel C (range_match) and the pack against the plain versions on CPU:
    K = 2, B = 8192, one window based below B (it holds the doubling lane),
@@ -41,12 +44,17 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     compared again, matching lanes > 0 for each;
 15. a timed benchmark_device run on a DFA pattern that never matches
     (BenchNeverMatches$, P2PKH, GLV, about 5 s) through kernel E;
-16. the P2TR kernels F (p2tr_ladder, finish=True, and its finish=False
-    form on affine points), G (batch_inverse_chain, with a forced zero-Z
-    lane), H (p2tr_finish_range, ^bc1pq) and I (p2tr_finish_match, q$)
-    against their plain versions on CPU: real tables and base points,
-    K = 2, B = 8192, one window based below B; bit-equal, matching lanes
-    > 0;
+16. the ladder table of the product's window schedule
+    (``fused.LADDER_WINDOW``) built from scratch on the host, timed as a
+    stage of its own; the P2TR kernels F (p2tr_ladder, finish=True, and its
+    finish=False form on affine points, with the product's table and with
+    the JAX package's 8-bit one), G (batch_inverse_chain at the product's
+    geometry and at (64, 1), with a forced zero-Z lane), H
+    (p2tr_finish_range, ^bc1pq) and I (p2tr_finish_match, q$) against
+    their plain versions on CPU: real tables and base points, K = 2, B =
+    8192, one window based below B (the doubling lane; and key 10286,
+    whose first add at 16 signed bits meets its own point, its output key
+    held to the oracle's); bit-equal, matching lanes > 0;
 17. ``generate -f p2tr -p ^bc1pqq -c 3`` at full width: oracle-confirmed;
     kernels A, F, G and H launched, I not;
 18. ``generate -f p2tr -p qq$ -c 3``: kernels A, F, G and I, H not;
@@ -55,7 +63,9 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 20. kernels F, G, H and I and their plain versions timed at K = 8,
     B = 524288 with CUDA events, outputs compared again (the plain ladder
     at K = 1 when K = 8 would take over 60 s, judged from one window),
-    and F's finish=False form at N = 524288;
+    and F's finish=False form at N = 524288; F on the 8-bit table and G
+    at (64, 1) timed once beside them, their outputs (F's output key x
+    and ok) held to the product's;
 21. timed benchmark_device runs (about 5 s each) on P2TR patterns that
     never match: an interval pattern through kernels A, F, G and H, and a
     suffix through A, F, G and I.
@@ -125,8 +135,13 @@ over the SMs at the maximum SM clock nvidia-smi reports) and its bytes
 Instructions are counted per lane from the algorithm; the model's rates
 are the card's published ones (128 instructions, 64 ALU-only and 32
 32x32 -> 64 multiply-adds per SM per clock), which phase 27's probes
-check; the ladder's adds are counted from this run's tweak digits.  A kernel timed below its bound fails the run: the model
-would then count more than the work needs.
+check.  The counts follow the work of the configuration that ran: the
+ladder's adds and negations are the nonzero and negative digits of this
+run's tweaks in its schedule (``probes/sweep_ladder_window.py``
+``ladder_count``), kernels A and G share one inversion and a product
+tree per group (``probes/sweep_inv_chain.py`` ``chain_count``).  A
+kernel timed below its bound fails the run: the model would then count
+more than the work needs.
 """
 
 import contextlib
@@ -190,18 +205,20 @@ def main():
     from vgen_tpu_torch import cli, native
     from vgen_tpu_torch.cli import resolve_range_params
     from vgen_tpu_torch.crypto import secp256k1 as ec
-    from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator
+    from vgen_tpu_torch.crypto.address import (
+        AddressFormat, AddressGenerator, taproot_output_x)
     from vgen_tpu_torch.pattern import Pattern
     from vgen_tpu_torch.scan.checkpoint import CheckpointManager
     from vgen_tpu_torch.scan.host import ScanConfig, StopFlag, _scan_cpu
     from vgen_tpu_torch.csrc import build
-    from vgen_tpu_torch.ops import curve, fused, pipeline, sha256, u256
+    from vgen_tpu_torch.ops import curve, fused, pipeline, u256
     from vgen_tpu_torch.probes.bound_model import (
         B58_SYMBOLS, BECH32M, DFA_STEP, EIP55_SYMBOLS, FE_ADD, FE_MUL, FE_SQR,
-        HASH160, INV, KECCAK, KECCAK_X_ONLY, LEAN_ADD, RIPEMD160, SCRIPT_HASH,
-        SHA256_X65, SHA256_X65_PAIR, TAGGED, bound, compare)
-    from vgen_tpu_torch.probes.bound_model import ops as model_ops
+        HASH160, KECCAK, KECCAK_X_ONLY, RIPEMD160, SCRIPT_HASH, SHA256_X65,
+        SHA256_X65_PAIR, bound, compare)
     from vgen_tpu_torch.probes import bound_model
+    from vgen_tpu_torch.probes import sweep_inv_chain as sic
+    from vgen_tpu_torch.probes import sweep_ladder_window as slw
     from vgen_tpu_torch.scan import scanner as sc
     from vgen_tpu_torch.scan import tables
 
@@ -316,6 +333,23 @@ def main():
 
     plain_out = []
 
+    def time_old(kname, what, run, ref, ops, nbytes, reps, view=None):
+        """Time the earlier configuration ``what`` of a redesigned kernel
+        once beside the product's, hold its output (through ``view``, if
+        given) to the product's ``ref`` and its time to its own bound ->
+        (ms, bound_ms)."""
+        ms = cuda_ms(run, reps)
+        out = run() if view is None else view(*run())
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        require(all(torch.equal(o, r) for o, r in zip(outs, refs)),
+                f"{kname} at {what} differs from the product's output")
+        del out, outs
+        bms = bound(ops, nbytes, sm_clocks_per_s)[0]
+        require(ms >= bms, f"{kname} at {what}: {ms:.3f} ms beats its bound "
+                f"{bms:.3f} ms")
+        return ms, bms
+
     # -- 2. build -------------------------------------------------------
     # the product's units and the probe unit, one nvcc each, all at once
     t0 = time.time()
@@ -346,8 +380,10 @@ def main():
     tx = u256.as_i32(u256.from_ints(tx_i))
     inv_plain = fused.batch_inverse_dx(bx, tx)
     inv_dev = fused.batch_inverse_dx(bx.to(dev), tx.to(dev))
+    inv_old = fused.batch_inverse_dx(bx.to(dev), tx.to(dev), chain=64, group=1)
     torch.cuda.synchronize()
-    err_a = max_abs_err(inv_dev.cpu(), inv_plain)
+    err_a = max(max_abs_err(inv_dev.cpu(), inv_plain),
+                max_abs_err(inv_old.cpu(), inv_plain))
     require(err_a == 0, f"kernel A differs from its plain version ({err_a})")
     got = u256.to_ints(inv_dev.cpu())
     lanes = random.Random(7).sample(range(K * B), 64)
@@ -356,8 +392,9 @@ def main():
         if dx:
             require(dx * got[e] % ec.P == 1, f"kernel A: bad inverse at {e}")
     require(got[B + 4321] == 1, "kernel A: zero dx not guarded to 1")
-    log(f"[3] kernel A == plain on K={K} B={B} (bit-equal, zero lane guarded,"
-        f" 64 lanes x*inv=1)")
+    log(f"[3] kernel A == plain on K={K} B={B} at (M, G) = "
+        f"{fused.INV_GEOMETRY} and (64, 1) (bit-equal, zero lane guarded, 64 "
+        f"lanes x*inv=1)")
 
     # -- 4. kernel B + pack vs plain --------------------------------------
     fmt = AddressFormat.P2PKH
@@ -413,11 +450,13 @@ def main():
     mask_f = fused.range_glv_match(fmt, bxf, byf, txf, tyf, inv_f, lof, hif,
                                    remf)
     N = K * B
-    M = fused._chain_len(N)
+    M, G = fused._chain_len(N, fused.INV_GEOMETRY[0]), fused.INV_GEOMETRY[1]
     S = lo.shape[0]
     # bytes of the per-window bases, the table and the inverses, read once
     lane_in = 64 * K + 64 * B + 32 * N + 4 * K
-    chain_ops = N * (3 * FE_MUL + INV / M + FE_ADD)
+    # per element: three multiplies, the subtraction, the group's inversion
+    # and product tree (probes/sweep_inv_chain.py chain_count)
+    chain_ops = N * sic.chain_count(M, G, sic.A_INPUT)
     # the x-only finish and beta x, beta^2 x of kernels B and E
     finish_x_glv = 3 * FE_MUL + FE_SQR + 4 * FE_ADD
     for kname, run, plain, ref, replaces, err_small, ops, nbytes in (
@@ -440,6 +479,15 @@ def main():
             f"K={K} B={B}", ops, nbytes)
         log(f"[6] {kname} at K={K} B={B}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({bby}), bit-equal ({smi})")
+    row_a = next(k for k in kernels if k["name"] == "batch_inverse_dx")
+    old_ms, old_bms = time_old(
+        "batch_inverse_dx", "(64, 1)",
+        lambda: fused.batch_inverse_dx(bxf, txf, chain=64, group=1), inv_f,
+        N * sic.chain_count(64, 1, sic.A_INPUT), 32 * K + 32 * B + 32 * N, 10)
+    log(f"[6] batch_inverse_dx at (M, G) = (64, 1), one inversion per thread:"
+        f" {old_ms:.3f} ms, bound {old_bms:.3f} ms; (M, G) = ({M}, {G}) "
+        f"{row_a['ms']:.3f} ms, bound {row_a['bound_ms']:.3f} ms, "
+        f"bit-equal ({smi})")
 
     # -- 7. timed scan -----------------------------------------------------
     stats = sc.benchmark_device(min_seconds=10.0)
@@ -683,6 +731,20 @@ def main():
     # -- 16. kernels F, G, H, I vs plain ------------------------------------
     p2tr = AddressFormat.P2TR
     K, B = 2, 8192
+    # the ladder table of the product's schedule, built from scratch (the
+    # card machine's checkout holds no table cache): a stage of its own
+    bits, signed = fused.LADDER_WINDOW
+    t0 = time.time()
+    wtp_np = tables.ladder_table_limbs(bits, signed, refresh=True)
+    table_s = time.time() - t0
+    wtp_c = u256.as_i32(wtp_np)
+    wtp_d = wtp_c.to(dev)
+    log(f"[16] ladder table {slw.schedule_name(bits, signed)}: "
+        f"{fused.ladder_shape(bits, signed)[0]} windows of "
+        f"{fused.ladder_shape(bits, signed)[1]} entries, "
+        f"{slw.table_bytes(bits, signed) / 2**20:.2f} MiB, built in "
+        f"{table_s:.2f} s on the host")
+    # the JAX package's 8-bit table: the ladder's earlier schedule
     wt_c = tables.window_table("cpu")
     wt_d = wt_c.to(dev)
     bases16 = [1 + B // 2, 0x5EED5EED5EED]  # window 0: doubling lane at B/2
@@ -701,23 +763,40 @@ def main():
         require(err == 0, f"{kname}{what} differs from its plain version "
                 f"({err})")
 
-    t0 = time.time()
-    F_c = fused.p2tr_ladder(*cpu16, wt_c)
-    plain_s = time.time() - t0
-    F_d = fused.p2tr_ladder(*dev16, wt_d)
-    torch.cuda.synchronize()
-    same("p2tr_ladder", F_d, F_c)
-    require(int(F_c[2].sum()) == K * B - 1 and int(F_c[2][bases16[0] - 1]) == 0,
-            "kernel F: ok is not 1 on every lane but the doubling lane")
     xa, ya = (t[:, :4096].contiguous() for t in (txs, tys))
-    Fa_c = fused.p2tr_ladder_affine(xa, ya, wt_c)
-    Fa_d = fused.p2tr_ladder_affine(xa.to(dev), ya.to(dev), wt_d)
-    torch.cuda.synchronize()
-    same("p2tr_ladder", Fa_d, Fa_c, " (finish=False)")
+    plain_s = {}
+    for sched, w_c, w_d in (("product", wtp_c, wtp_d), ("8u", wt_c, wt_d)):
+        t0 = time.time()
+        F_c = fused.p2tr_ladder(*cpu16, w_c)
+        plain_s[sched] = time.time() - t0
+        F_d = fused.p2tr_ladder(*dev16, w_d)
+        torch.cuda.synchronize()
+        same("p2tr_ladder", F_d, F_c, f" ({sched} schedule)")
+        require(int(F_c[2].sum()) == K * B - 1
+                and int(F_c[2][bases16[0] - 1]) == 0,
+                "kernel F: ok is not 1 on every lane but the doubling lane")
+        Fa_c = fused.p2tr_ladder_affine(xa, ya, w_c)
+        Fa_d = fused.p2tr_ladder_affine(xa.to(dev), ya.to(dev), w_d)
+        torch.cuda.synchronize()
+        same("p2tr_ladder", Fa_d, Fa_c, f" (finish=False, {sched} schedule)")
+        if sched == "product":
+            F_prod_c, F_prod_d = F_c, F_d
+    F_c, F_d = F_prod_c, F_prod_d
+    # window 0 holds keys 4098..12289; at 16 signed bits the first add of
+    # key 10286 meets its own point (a doubling): its output key x is the
+    # oracle's
+    lane = 10286 - bases16[0] - 1
+    Xl, Zl = (u256.to_ints(t[:, lane:lane + 1].cpu())[0] for t in F_d[:2])
+    require(int(F_d[2][lane]) == 1 and Xl * pow(Zl, -2, ec.P) % ec.P
+            == taproot_output_x(ec.xonly(ec.scalar_mult(10286))[0]),
+            "kernel F: key 10286's output key is not the oracle's")
     Zg = F_c[1].clone()
     Zg[:, 77] = 0  # a dead lane's Z
     G_c = fused.batch_inverse_chain(Zg)
     same("batch_inverse_chain", fused.batch_inverse_chain(Zg.to(dev)), G_c)
+    same("batch_inverse_chain",
+         fused.batch_inverse_chain(Zg.to(dev), chain=64, group=1), G_c,
+         " at (64, 1)")
     require(u256.to_ints(G_c[:, 77:78]) == [1], "kernel G: zero not guarded to 1")
     X_c, Z_c, ok_c = F_c
     zi_c = fused.batch_inverse_chain(Z_c)
@@ -740,10 +819,14 @@ def main():
             "kernels H, I: no matching lane")
     require(int(H_c[0, bases16[0] - 1]) == 0 and int(H_c[1, B - 100:].sum()) == 0,
             "kernel H: a dead or out-of-window lane is set")
-    log(f"[16] kernels F (both flags), G (zero lane 77 -> 1), H (^bc1pq, "
+    log(f"[16] kernels F (both flags, schedules "
+        f"{slw.schedule_name(bits, signed)} and 8u), G (at (M, G) = "
+        f"{fused.INV_GEOMETRY} and (64, 1), zero lane 77 -> 1; key 10286's "
+        f"output key the oracle's), H (^bc1pq, "
         f"{int(H_c.sum())} lanes), I (q$, {int(I_c.sum())} lanes) == plain on "
-        f"K={K} B={B} (plain ladder on CPU {plain_s:.1f} s)")
-    del F_d, Fa_d, X_d, Z_d, ok_d, zi_d
+        f"K={K} B={B} (plain ladder on CPU {plain_s['product']:.1f} s, 8u "
+        f"{plain_s['8u']:.1f} s)")
+    del F_d, Fa_d, X_d, Z_d, ok_d, zi_d, F_prod_d
 
     # -- 17, 18. random P2TR paths at full width through the CLI -------------
     for argv, src, path, on, off in (
@@ -799,40 +882,38 @@ def main():
     N = K * B
     shape = f"K={K} B={B}"
     lanes20 = (bxf, byf, txf, tyf, inv_f)
-    X_f, Z_f, ok_f = ref_f = fused.p2tr_ladder(*lanes20, wt_d)
+    X_f, Z_f, ok_f = ref_f = fused.p2tr_ladder(*lanes20, wtp_d)
     zi_f = fused.batch_inverse_chain(Z_f)
     lo20, hi20 = lo16.to(dev), hi16.to(dev)
     S20 = lo20.shape[0]
     tab20, acc20 = tab16.to(dev), acc16.to(dev)
 
-    def ladder_adds(x):
-        """The nonzero digits of the tweaks of x ((8, n) int64): the
-        ladder's adds on this run's data."""
-        t = sha256.tagged_hash_32(fused.TAPTWEAK_MIDSTATE, x)
-        return int(sum(((t[w // 4] >> (8 * (w % 4))) & 255).ne(0).sum()
-                       for w in range(32)))
-
+    # the ladder's adds and negations on this run's tweaks, for each
+    # schedule timed (probes/sweep_ladder_window.py ladder_work)
     x3, _, _ = curve.ec_finish(*fused._lanes(*lanes20))
-    adds = ladder_adds(x3.reshape(8, N))
+    t20 = slw.tweaks(x3.reshape(8, N))
     del x3
+    adds, negs = slw.ladder_work(t20, bits, signed)
+    adds8, _ = slw.ladder_work(t20, 8, False)
+    del t20
     # the plain ladder on one window first: K = 8 only if it fits in 60 s
     inv_1 = inv_f[:, :B].contiguous()
     plain_1 = lambda: fused.p2tr_ladder_plain(bxf[:1], byf[:1], txf, tyf,
-                                              inv_1, wt_d)
+                                              inv_1, wtp_d)
     plain_k8_s = cuda_ms(plain_1, 1, warm=False) * K / 1e3
     if plain_k8_s <= 60:
-        plain_f = lambda: fused.p2tr_ladder_plain(*lanes20, wt_d)
+        plain_f = lambda: fused.p2tr_ladder_plain(*lanes20, wtp_d)
         ref_plain, plain_shape = ref_f, shape
     else:
         plain_f = plain_1
         ref_plain = (X_f[:, :B], Z_f[:, :B], ok_f[:B])
         plain_shape = f"K=1 B={B} (K=8 estimated at {plain_k8_s:.0f} s)"
-    # per lane: the even-Y negation, the tweak's compression of x from the
-    # tag's midstate and t < n; per add (8M + 3S): six subtractions and 2V
-    # as an addition
-    tweak_ops = FE_ADD + TAGGED + model_ops(0, 0, 16)
-    add_ops = LEAN_ADD
-    ladder_ops = N * (finish_xy + tweak_ops) + adds * add_ops
+    # per lane: the full finish, the even-Y negation, the tweak's
+    # compression of x from the tag's midstate and t < n; per add (8M +
+    # 3S): six subtractions and 2V as an addition; per negative digit a
+    # negation (sweep_ladder_window.ladder_count)
+    ladder_ops = slw.ladder_count(N, adds, negs)
+    ladder_bytes = lane_in + 68 * N
     finish_ops = N * (FE_MUL + FE_SQR)
     finish_in = 100 * N + 4 * K
     # bech32m: 58 five-bit groups (2 each: the witness program's 52 and the
@@ -840,16 +921,18 @@ def main():
     # the symbol's XOR and five conditional XORs of 2; the human-readable
     # part and the witness version fold to constants); the 60-step walk
     bech32m_walk = BECH32M + 60 * DFA_STEP
+    Mz = fused._chain_len(N, fused.INV_GEOMETRY[0])
     for kname, run, plain, ref, replaces, path, ops, nbytes, pshape in (
         ("p2tr_ladder",
-         lambda: fused.p2tr_ladder(*lanes20, wt_d), plain_f, ref_plain,
+         lambda: fused.p2tr_ladder(*lanes20, wtp_d), plain_f, ref_plain,
          "vgen_tpu/ops/pallas_fused.py:931", "random interval p2tr",
-         ladder_ops, lane_in + 32 * 256 * 2 * 8 * 4 + 68 * N, plain_shape),
+         ladder_ops, ladder_bytes + slw.table_bytes(bits, signed),
+         plain_shape),
         ("batch_inverse_chain",
          lambda: fused.batch_inverse_chain(Z_f),
          lambda: fused.batch_inverse_chain_plain(Z_f), zi_f,
          "vgen_tpu/ops/pallas_fused.py:441", "random interval p2tr",
-         N * (3 * FE_MUL + INV / fused._chain_len(N) + model_ops(0, 0, 8)),
+         N * sic.chain_count(Mz, fused.INV_GEOMETRY[1], sic.G_INPUT),
          64 * N, shape),
         ("p2tr_finish_range",
          lambda: fused.p2tr_finish_range(X_f, Z_f, zi_f, ok_f, lo20, hi20, remf),
@@ -878,16 +961,42 @@ def main():
             f"{plain_ms:.1f} ms at {pshape}, bound {bms:.3f} ms ({bby}), "
             f"bit-equal, {hits} live/matching lanes ({smi})")
         del ref
+    # the earlier configurations, timed once beside the product's: the
+    # ladder on the 8-bit table (its output key x and ok held to the
+    # product's), the chain with one inversion per thread
+    qx_f = slw.output_x(X_f, Z_f)
+    old_f, old_f_bms = time_old(
+        "p2tr_ladder", "the 8u schedule",
+        lambda: fused.p2tr_ladder(*lanes20, wt_d),
+        (qx_f[:, ok_f != 0], ok_f), slw.ladder_count(N, adds8, 0),
+        ladder_bytes + slw.table_bytes(8, False), 3,
+        view=lambda X, Z, ok: (slw.output_x(X, Z)[:, ok_f != 0], ok))
+    del qx_f
+    old_g, old_g_bms = time_old(
+        "batch_inverse_chain", "(64, 1)",
+        lambda: fused.batch_inverse_chain(Z_f, chain=64, group=1), zi_f,
+        N * sic.chain_count(64, 1, sic.G_INPUT), 64 * N, 10)
+    rows20 = {k["name"]: k for k in kernels}
+    log(f"[20] p2tr_ladder on the 8u table ({adds8 / N:.3f} adds a lane, "
+        f"the {slw.schedule_name(bits, signed)} schedule {adds / N:.3f} and "
+        f"{negs / N:.3f} negations): {old_f:.3f} ms, bound {old_f_bms:.3f} "
+        f"ms, against {rows20['p2tr_ladder']['ms']:.3f} ms, bound "
+        f"{rows20['p2tr_ladder']['bound_ms']:.3f} ms; batch_inverse_chain at "
+        f"(64, 1): {old_g:.3f} ms, bound {old_g_bms:.3f} ms, against "
+        f"{rows20['batch_inverse_chain']['ms']:.3f} ms, bound "
+        f"{rows20['batch_inverse_chain']['bound_ms']:.3f} ms; outputs equal "
+        f"({smi})")
     xa_f, ya_f = txf[:, :B].contiguous(), tyf[:, :B].contiguous()
-    aff_ms = cuda_ms(lambda: fused.p2tr_ladder_affine(xa_f, ya_f, wt_d), 3)
+    aff_ms = cuda_ms(lambda: fused.p2tr_ladder_affine(xa_f, ya_f, wtp_d), 3)
     aff_plain_ms = cuda_ms(lambda: plain_out.append(
-        fused.p2tr_ladder_affine_plain(xa_f, ya_f, wt_d)), 1, warm=False)
-    same("p2tr_ladder", fused.p2tr_ladder_affine(xa_f, ya_f, wt_d),
+        fused.p2tr_ladder_affine_plain(xa_f, ya_f, wtp_d)), 1, warm=False)
+    same("p2tr_ladder", fused.p2tr_ladder_affine(xa_f, ya_f, wtp_d),
          tuple(t.cpu() for t in plain_out.pop()), f" (finish=False) at N={B}")
-    adds_aff = ladder_adds(u256.to_i64(xa_f))
-    aff_bound, aff_by = bound(B * tweak_ops + adds_aff * add_ops,
-                              (64 + 68) * B + 32 * 256 * 2 * 8 * 4,
-                              sm_clocks_per_s)
+    adds_aff, negs_aff = slw.ladder_work(slw.tweaks(u256.to_i64(xa_f)), bits,
+                                         signed)
+    aff_bound, aff_by = bound(
+        slw.ladder_count(B, adds_aff, negs_aff, finish=False),
+        (64 + 68) * B + slw.table_bytes(bits, signed), sm_clocks_per_s)
     require(aff_ms >= aff_bound, f"p2tr_ladder (finish=False): {aff_ms:.3f} "
             f"ms beats its bound {aff_bound:.3f} ms")
     log(f"[20] p2tr_ladder (finish=False) at N={B}: kernel {aff_ms:.3f} ms, "

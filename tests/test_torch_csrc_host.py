@@ -76,13 +76,14 @@ void h_ladder(const uint32_t* bx, const uint32_t* by, const uint32_t* tx,
               uint32_t* X, uint32_t* Z, int32_t* ok, int K, int B) {
   const long N = (long)K * B;
   for (long e = 0; e < N; e++)
-    ok[e] = vg::p2tr_ladder_lane(bx, by, tx, ty, inv, table, X, Z, B, N, e);
+    ok[e] = vg::p2tr_ladder_lane<8, false>(bx, by, tx, ty, inv, table, X, Z, B,
+                                           N, e);
 }
 void h_ladder_affine(const uint32_t* x, const uint32_t* y,
                      const uint32_t* table, uint32_t* X, uint32_t* Z,
                      int32_t* ok, int N) {
   for (long e = 0; e < N; e++)
-    ok[e] = vg::p2tr_ladder_affine_lane(x, y, table, X, Z, N, e);
+    ok[e] = vg::p2tr_ladder_affine_lane<8, false>(x, y, table, X, Z, N, e);
 }
 void h_chain(const uint32_t* v, uint32_t* out, uint32_t* scratch, int N,
              int M) {

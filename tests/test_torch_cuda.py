@@ -370,3 +370,50 @@ def test_kernel_a_chain_changes_no_value(dev, chain):
     got = fused.batch_inverse_dx(bx.to(dev), tx.to(dev), chain=chain)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+# -- the window schedules of kernel F and the geometries of kernels A, G ----
+
+
+@pytest.mark.parametrize("schedule", fused.LADDER_WINDOWS,
+                         ids=lambda s: f"{s[0]}{'s' if s[1] else 'u'}")
+def test_p2tr_ladder_schedule_equals_plain(dev, schedule):
+    """Kernel F at every instanced window schedule, both flags, bit-equal
+    to its plain version with that schedule's table (the doubling lane
+    included)."""
+    wt = torch.from_numpy(tables.ladder_table_limbs(*schedule)
+                          .view(np.int32))
+    bx, by, tx, ty, _ = _step_inputs()
+    cpu = (bx, by, tx, ty, fused.batch_inverse_dx(bx, tx), wt)
+    got = fused.p2tr_ladder(*(a.to(dev) for a in cpu))
+    torch.cuda.synchronize()
+    for g, w in zip(got, fused.p2tr_ladder_plain(*cpu)):
+        assert torch.equal(g.cpu(), w)
+    x, y = (t[:, :256].contiguous() for t in (tx, ty))
+    got = fused.p2tr_ladder_affine(x.to(dev), y.to(dev), wt.to(dev))
+    for g, w in zip(got, fused.p2tr_ladder_affine_plain(x, y, wt)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("geometry", [(64, 1), (16, 32), (16, 256), (32, 256),
+                                      (8, 512), (64, 256), (1, 512)],
+                         ids=lambda g: f"m{g[0]}g{g[1]}")
+def test_inversion_geometry_equals_plain(dev, geometry):
+    """Kernels A and G at (M, G): bit-equal to their plain versions, zero
+    lanes guarded to 1 (at K = 2, B = 4096 a group of 512 threads of chains
+    of 64 is partly past the last thread)."""
+    m, g = geometry
+    rng = np.random.default_rng(507)
+    bx_i = [int.from_bytes(rng.bytes(32), "big") % ec.P for _ in range(K)]
+    tx_i = [int.from_bytes(rng.bytes(32), "big") % ec.P for _ in range(B)]
+    tx_i[17] = bx_i[1]
+    bx = u256.as_i32(u256.from_ints(bx_i).T)
+    tx = u256.as_i32(u256.from_ints(tx_i))
+    got = fused.batch_inverse_dx(bx.to(dev), tx.to(dev), chain=m, group=g)
+    want = fused.batch_inverse_dx_plain(bx, tx)
+    v = want.clone()
+    v[:, [0, 95, K * B - 1]] = 0
+    got_g = fused.batch_inverse_chain(v.to(dev), chain=m, group=g)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got_g.cpu(), fused.batch_inverse_chain_plain(v))

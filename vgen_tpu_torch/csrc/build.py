@@ -143,7 +143,7 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         signatures = {
             "kernels": {
-                "vgen_batch_inverse_dx": [p, p, p, p, i, i, i, p],
+                "vgen_batch_inverse_dx": [p, p, p, p, i, i, i, i, p],
                 "vgen_range_glv_match": [i, p, p, p, p, p, p, p, i, p, p, i, i,
                                          p],
                 "vgen_range_match": [i, p, p, p, p, p, p, p, i, p, p, i, i, p],
@@ -152,9 +152,10 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                                        i, p],
             },
             "p2tr": {
-                "vgen_p2tr_ladder": [p, p, p, p, p, p, p, p, p, i, i, p],
-                "vgen_p2tr_ladder_affine": [p, p, p, p, p, p, i, p],
-                "vgen_batch_inverse_chain": [p, p, p, i, i, p],
+                "vgen_p2tr_ladder": [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                     p],
+                "vgen_p2tr_ladder_affine": [p, p, p, p, p, p, i, i, i, p],
+                "vgen_batch_inverse_chain": [p, p, p, i, i, i, p],
                 "vgen_p2tr_finish_range": [p, p, p, p, p, p, i, p, p, i, i, p],
                 "vgen_p2tr_finish_match": [p, p, p, p, p, p, i, i, p, p, i, i,
                                            p],

@@ -237,7 +237,40 @@ VG_FN void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
   fe_reduce512(r, t);
 }
 
-VG_FN void fe_sqr(uint32_t r[8], const uint32_t a[8]) { fe_mul(r, a, a); }
+// r = a^2 mod p with 36 products: the 28 cross products a[i] a[j] (i < j)
+// in rows with 64-bit carry chains, doubled by a one-bit shift, plus the
+// 8 squares a[i]^2, then the fold of fe_mul.  r may alias a.
+VG_FN void fe_sqr(uint32_t r[8], const uint32_t a[8]) {
+  uint32_t t[16];
+#pragma unroll
+  for (int i = 0; i < 16; i++) t[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < 7; i++) {
+    u64 c = 0;
+#pragma unroll
+    for (int j = i + 1; j < 8; j++) {
+      c += (u64)a[i] * a[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + 8] = (uint32_t)c;
+  }
+  // the cross sum is below 2^511, so doubling it cannot carry out
+#pragma unroll
+  for (int i = 15; i > 0; i--) t[i] = (t[i] << 1) | (t[i - 1] >> 31);
+  t[0] <<= 1;
+  u64 c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    const u64 sq = (u64)a[i] * a[i];
+    c += (u64)t[2 * i] + (uint32_t)sq;
+    t[2 * i] = (uint32_t)c;
+    c = (c >> 32) + (u64)t[2 * i + 1] + (sq >> 32);
+    t[2 * i + 1] = (uint32_t)c;
+    c >>= 32;
+  }
+  fe_reduce512(r, t);
+}
 
 VG_FN void fe_sqr_n(uint32_t r[8], int n) {
   for (int i = 0; i < n; i++) fe_sqr(r, r);

@@ -11,13 +11,19 @@
 //   zero dx guarded to 1.
 //   Bound: 32-bit integer multiply throughput.  About 3 field multiplies
 //   per element (forward product, backward product, backward accumulate)
-//   plus one 270-step addition-chain inversion amortised over M elements;
-//   the prefix scratch adds 64 bytes written and read per element.
+//   plus one 270-step addition-chain inversion amortised over the M * G
+//   elements of a group, and the product tree's 3 (G - 1) multiplies; the
+//   prefix scratch adds 64 bytes written and read per element.
 //   Design: the TPU ran one long chain as a sequential grid carrying the
 //   running product in VMEM.  Here blocks run in no order, so every thread
 //   owns its own chain of M elements strided by the thread count (loads
-//   coalesce), and the three passes are one launch.  The output is
-//   canonical, so the chain geometry does not change the result.
+//   coalesce), and G threads of a block share one inversion through a
+//   product tree in shared memory (inv_block.cuh): one thread of a warp
+//   doing an inversion costs the whole warp's issue slots, so only a
+//   group wider than a warp cuts the inversions' cost.  The three passes
+//   are one launch.  The output is canonical, so the geometry (M, G)
+//   does not change the result; (64, 1) is a chain of 64 with one
+//   inversion per thread.
 //
 // Kernels B to E serve the five hash formats, each a template on the format
 // (match_kernels.cuh, per-lane bodies in scan_lanes.cuh), all instanced in
@@ -88,6 +94,7 @@
 //   Design: D's body shared through dfa.cuh; the variant loops are not
 //   unrolled, to bound the code size of the six inlined encoders.
 
+#include "inv_block.cuh"
 #include "match_kernels.cuh"
 
 #define VG_HASH_FORMATS                                                  \
@@ -96,30 +103,36 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
     inv_dx_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ tx,
                   uint32_t* __restrict__ out, uint32_t* __restrict__ scratch,
-                  long B, long N, long T, int M) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  vg::inv_dx_thread(bx, tx, out, scratch, B, N, T, M, t);
+                  long B, long N, long T, int M, int G) {
+  vg::inv_block<kBlock>(vg::DxInput{bx, tx, B}, out, scratch, N, T, M, G);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bx (K, 8), tx (8, B) -> out (8, K*B); scratch (8, K*B); M divides K*B.
+// bx (K, 8), tx (8, B) -> out (8, K*B); scratch (8, K*B); M divides K*B;
+// groups of G threads share an inversion (inv_block.cuh).
 int vgen_batch_inverse_dx(const void* bx, const void* tx, void* out,
-                          void* scratch, int K, int B, int M, void* stream) {
+                          void* scratch, int K, int B, int M, int G,
+                          void* stream) {
+  if (!vg::inv_group_ok(G)) return (int)cudaErrorInvalidValue;
   const long N = (long)K * B;
   const long T = N / M;
-  const unsigned blocks = (unsigned)((T + kThreads - 1) / kThreads);
-  inv_dx_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)bx, (const uint32_t*)tx, (uint32_t*)out,
-      (uint32_t*)scratch, (long)B, N, T, M);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const uint32_t *bx_ = (const uint32_t*)bx, *tx_ = (const uint32_t*)tx;
+  uint32_t *out_ = (uint32_t*)out, *scratch_ = (uint32_t*)scratch;
+  if (G <= 256) {
+    inv_dx_kernel<256><<<(unsigned)((T + 255) / 256), 256, 0, s>>>(
+        bx_, tx_, out_, scratch_, (long)B, N, T, M, G);
+  } else {
+    inv_dx_kernel<512><<<(unsigned)((T + 511) / 512), 512, 0, s>>>(
+        bx_, tx_, out_, scratch_, (long)B, N, T, M, G);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -11,26 +11,36 @@
 //   affine-input form that p2tr_output_key_pallas drives).
 //   Computes: per lane, the full affine finish of kernel A's inverse (or
 //   the affine input), the even-Y internal key, t = TapTweak(x) (one SHA-256
-//   compression from the host midstate), t < n, and Q = P + t*G by 32
-//   fixed 8-bit windows of lean Jacobian mixed adds -> X, Z (8, N) and ok.
-//   Y is not written: nothing reads it.
-//   Bound: 32-bit integer multiply throughput.  About 32 x 11 = 352 field
-//   multiplies per lane (each 64 32x32->64 products and the folds) against
-//   one SHA-256 compression; it reads 96 bytes (plus 16 table words per
-//   nonzero digit, served by L2: the table is 512 KB) and writes 68 per lane.
-//   Design: the TPU selected table entries by a one-hot byte-plane matmul
-//   (p2tr_planes); here each thread reads table[w][digit] by index through
-//   the read-only path (__ldg).  The window loop is not unrolled, to keep
-//   the code and register footprint of one lean add.
+//   compression from the host midstate), t < n, and Q = P + t*G by fixed
+//   windows of lean Jacobian mixed adds -> X, Z (8, N) and ok.  Y is not
+//   written: nothing reads it.
+//   Bound: 32-bit integer multiply throughput.  Each window with a nonzero
+//   digit is one lean add (8 multiplies, 3 squarings), against one SHA-256
+//   compression; it reads 96 bytes (plus the 64-byte table entry of each
+//   nonzero digit, served by L2) and writes 68 per lane.
+//   Design: the window is a template parameter, (kBits, kSigned) of
+//   p2tr_lanes.cuh LadderWindows, instanced below for the widths
+//   vgen_tpu_torch.ops.fused.LADDER_WINDOWS lists; the launcher takes the
+//   width and signedness and the table of that schedule (scan/tables.py
+//   ladder_table).  Wider windows cut the adds (8 bits: 32 windows; 16
+//   signed, the product's: 17, 16.5 nonzero) for a larger table (512 KB;
+//   34 MiB, still within L2's 50 MB); signed digits halve the table for
+//   one negation of y per negative digit.  The TPU selected
+//   table entries by a one-hot byte-plane matmul (p2tr_planes); here each
+//   thread reads table[w][digit] by index through the read-only path in
+//   four 16-byte loads.  The digits come out of t by shifts on registers
+//   and the window loop is not unrolled, to keep the code and register
+//   footprint of one lean add.
 //
 // Kernel G, batch_inverse_chain
 //   Replaces _inv_chain_calls(C, guard_zero=True) (its fwd, inv and bwd
 //   pallas_calls) as driven by batch_inverse_chain_pallas.
 //   Computes: canonical inverses of an (8, N) array, zero guarded to 1.
 //   Bound: 32-bit integer multiply throughput, as kernel A (3 multiplies
-//   per element plus one inversion per chain of M).
-//   Design: kernel A's per-thread chain (scan_lanes.cuh inv_chain_thread)
-//   with the input read straight from the array.
+//   per element, one inversion per group of M * G elements and the
+//   group's product tree).
+//   Design: kernel A's block (inv_block.cuh) with the input read straight
+//   from the array.
 //
 // Kernel H, p2tr_finish_range
 //   Replaces _make_p2tr_finish_range_kernel (with _p2tr_qx_in_kernel) as
@@ -53,13 +63,14 @@
 
 #include <cuda_runtime.h>
 
+#include "inv_block.cuh"
 #include "p2tr_lanes.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kFinish>
+template <bool kFinish, int kBits, bool kSigned>
 __global__ void __launch_bounds__(kThreads)
     ladder_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
                   const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
@@ -69,19 +80,48 @@ __global__ void __launch_bounds__(kThreads)
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= N) return;
   if constexpr (kFinish) {
-    ok[e] = vg::p2tr_ladder_lane(bx, by, tx, ty, inv, table, X, Z, B, N, e);
+    ok[e] = vg::p2tr_ladder_lane<kBits, kSigned>(bx, by, tx, ty, inv, table, X,
+                                                 Z, B, N, e);
   } else {
     // affine input: (tx, ty) hold the internal keys' (x, y)
-    ok[e] = vg::p2tr_ladder_affine_lane(tx, ty, table, X, Z, N, e);
+    ok[e] = vg::p2tr_ladder_affine_lane<kBits, kSigned>(tx, ty, table, X, Z, N,
+                                                        e);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The ladder's window schedules (kBits, kSigned), as
+// vgen_tpu_torch/ops/fused.py LADDER_WINDOWS lists them
+#define VG_LADDER_WINDOWS(X)                                           \
+  X(8, false) X(12, false) X(13, false) X(14, false) X(13, true)       \
+      X(14, true) X(15, true) X(16, true)
+
+unsigned blocks_for(long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+
+// Launch kernel F with the schedule (bits, sgn); false for one that is not
+// instanced.
+template <bool kFinish>
+bool launch_ladder(int bits, int sgn, const uint32_t* bx, const uint32_t* by,
+                   const uint32_t* tx, const uint32_t* ty, const uint32_t* inv,
+                   const uint32_t* table, uint32_t* X, uint32_t* Z, int32_t* ok,
+                   long B, long N, cudaStream_t stream) {
+#define VG_LAUNCH_LADDER(kBits, kSigned)                                  \
+  if (bits == kBits && (sgn != 0) == kSigned) {                           \
+    ladder_kernel<kFinish, kBits, kSigned>                                \
+        <<<blocks_for(N), kThreads, 0, stream>>>(bx, by, tx, ty, inv, table, \
+                                                 X, Z, ok, B, N);         \
+    return true;                                                          \
+  }
+  VG_LADDER_WINDOWS(VG_LAUNCH_LADDER)
+#undef VG_LAUNCH_LADDER
+  return false;
+}
+
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
     inv_chain_kernel(const uint32_t* __restrict__ v, uint32_t* __restrict__ out,
-                     uint32_t* __restrict__ scratch, long N, long T, int M) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  vg::inv_chain_thread(vg::GuardedInput{v, N}, out, scratch, N, T, M, t);
+                     uint32_t* __restrict__ scratch, long N, long T, int M,
+                     int G) {
+  vg::inv_block<kBlock>(vg::GuardedInput{v, N}, out, scratch, N, T, M, G);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -115,42 +155,55 @@ __global__ void __launch_bounds__(kThreads)
   out[e] = vg::p2tr_dfa_lane(X, Z, zi, ok, dfa, remaining, B, N, e);
 }
 
-unsigned blocks_for(long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 extern "C" {
 
-// Kernel F.  bx, by (K, 8); tx, ty (8, B); inv (8, K*B); table
-// (32, 256, 2, 8) -> X, Z (8, K*B), ok (K*B,).
+// Kernel F.  bx, by (K, 8); tx, ty (8, B); inv (8, K*B); table of the
+// schedule (bits, sgn) (windows, entries, 2, 8) -> X, Z (8, K*B), ok
+// (K*B,); cudaErrorInvalidValue for a schedule that is not instanced.
 int vgen_p2tr_ladder(const void* bx, const void* by, const void* tx,
                      const void* ty, const void* inv, const void* table, void* X,
-                     void* Z, void* ok, int K, int B, void* stream) {
-  const long N = (long)K * B;
-  ladder_kernel<true><<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
-      (const uint32_t*)ty, (const uint32_t*)inv, (const uint32_t*)table,
-      (uint32_t*)X, (uint32_t*)Z, (int32_t*)ok, (long)B, N);
+                     void* Z, void* ok, int K, int B, int bits, int sgn,
+                     void* stream) {
+  if (!launch_ladder<true>(bits, sgn, (const uint32_t*)bx, (const uint32_t*)by,
+                           (const uint32_t*)tx, (const uint32_t*)ty,
+                           (const uint32_t*)inv, (const uint32_t*)table,
+                           (uint32_t*)X, (uint32_t*)Z, (int32_t*)ok, (long)B,
+                           (long)K * B, (cudaStream_t)stream))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 // Kernel F with finish=False.  x, y (8, N) affine internal keys -> X, Z
 // (8, N), ok (N,).
 int vgen_p2tr_ladder_affine(const void* x, const void* y, const void* table,
-                            void* X, void* Z, void* ok, int N, void* stream) {
-  ladder_kernel<false><<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
-      nullptr, nullptr, (const uint32_t*)x, (const uint32_t*)y, nullptr,
-      (const uint32_t*)table, (uint32_t*)X, (uint32_t*)Z, (int32_t*)ok,
-      (long)N, (long)N);
+                            void* X, void* Z, void* ok, int N, int bits, int sgn,
+                            void* stream) {
+  if (!launch_ladder<false>(bits, sgn, nullptr, nullptr, (const uint32_t*)x,
+                            (const uint32_t*)y, nullptr, (const uint32_t*)table,
+                            (uint32_t*)X, (uint32_t*)Z, (int32_t*)ok, (long)N,
+                            (long)N, (cudaStream_t)stream))
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-// Kernel G.  v (8, N) -> out (8, N); scratch (8, N); M divides N.
+// Kernel G.  v (8, N) -> out (8, N); scratch (8, N); M divides N; groups of
+// G threads share an inversion (inv_block.cuh).
 int vgen_batch_inverse_chain(const void* v, void* out, void* scratch, int N,
-                             int M, void* stream) {
+                             int M, int G, void* stream) {
+  if (!vg::inv_group_ok(G)) return (int)cudaErrorInvalidValue;
   const long T = (long)N / M;
-  inv_chain_kernel<<<blocks_for(T), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)v, (uint32_t*)out, (uint32_t*)scratch, (long)N, T, M);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (G <= 256) {
+    inv_chain_kernel<256><<<(unsigned)((T + 255) / 256), 256, 0, s>>>(
+        (const uint32_t*)v, (uint32_t*)out, (uint32_t*)scratch, (long)N, T, M,
+        G);
+  } else {
+    inv_chain_kernel<512><<<(unsigned)((T + 511) / 512), 512, 0, s>>>(
+        (const uint32_t*)v, (uint32_t*)out, (uint32_t*)scratch, (long)N, T, M,
+        G);
+  }
   return (int)cudaGetLastError();
 }
 

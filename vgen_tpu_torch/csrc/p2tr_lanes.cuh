@@ -3,8 +3,9 @@
 // arithmetic can be driven from a host compiler.
 //
 // Arrays are limb-major (8, N) uint32: limb l of element e is at l*N + e.
-// The window table is (32, 256, 2, 8) uint32: entry [w][d] is the affine
-// (x, y) of d * 2^(8w) * G, the d = 0 rows filler.
+// The ladder's window table for digits of kBits bits is (windows, entries,
+// 2, 8) uint32 (LadderWindows below): entry [w][d] is the affine (x, y) of
+// d * 2^(kBits w) * G, the d = 0 rows filler.
 #pragma once
 
 #include "scan_lanes.cuh"
@@ -79,12 +80,79 @@ VG_FN bool jacobian_add_affine_lean(uint32_t X[8], uint32_t Y[8], uint32_t Z[8],
   return ok;
 }
 
+// (X, Y, Z) = 2 (x, y) from an affine point (dbl-2009-l with Z1 = 1:
+// 1M + 4S; vgen_tpu_torch/ops/curve.py affine_double).
+VG_FN void affine_double(uint32_t X[8], uint32_t Y[8], uint32_t Z[8],
+                         const uint32_t x[8], const uint32_t y[8]) {
+  uint32_t A[8], Bv[8], C[8], D[8];
+  fe_sqr(A, x);
+  fe_sqr(Bv, y);
+  fe_sqr(C, Bv);
+  fe_add(D, x, Bv);
+  fe_sqr(D, D);
+  fe_sub(D, D, A);
+  fe_sub(D, D, C);
+  fe_mul_small(D, D, 2u);   // D = 2 ((x + B)^2 - A - C)
+  fe_mul_small(A, A, 3u);   // E = 3A
+  fe_sqr(X, A);
+  fe_mul_small(Z, D, 2u);
+  fe_sub(X, X, Z);          // X3 = E^2 - 2D
+  fe_sub(D, D, X);
+  fe_mul(Y, A, D);
+  fe_mul_small(C, C, 8u);
+  fe_sub(Y, Y, C);          // Y3 = E (D - X3) - 8C
+  fe_mul_small(Z, y, 2u);   // Z3 = 2y
+}
+
+// The window schedules of the ladder: t in digits of kBits bits, least
+// significant first.  Unsigned digits lie in [0, 2^kBits), ceil(256 /
+// kBits) windows of 2^kBits entries.  Signed digits lie in (-2^(kBits-1),
+// 2^(kBits-1)]: a digit above half is taken as d - 2^kBits and carries
+// one into the next window; the table holds |d| (2^(kBits-1) + 1 entries)
+// and a negative digit adds (x, -y).  ceil(257 / kBits) windows leave the
+// last digit room for the carry (t < 2^256).
+template <int kBits, bool kSigned>
+struct LadderWindows {
+  static_assert(kBits >= 2 && kBits <= 31, "a digit comes out of one limb");
+  static constexpr int kWindows =
+      kSigned ? (256 + kBits) / kBits : (256 + kBits - 1) / kBits;
+  static constexpr int kEntries = kSigned ? (1 << (kBits - 1)) + 1 : 1 << kBits;
+};
+
+// The next digit of t, whose low kBits bits it consumes (t shifts right by
+// kBits, in registers): returns |d| and sets neg for a negative digit;
+// carry is the signed recoding's (always 0 for unsigned digits).
+template <int kBits, bool kSigned>
+VG_FN uint32_t ladder_digit(uint32_t t[8], uint32_t& carry, bool& neg) {
+  uint32_t d = (t[0] & ((1u << kBits) - 1u)) + carry;
+#pragma unroll
+  for (int i = 0; i < 7; i++) t[i] = (t[i] >> kBits) | (t[i + 1] << (32 - kBits));
+  t[7] >>= kBits;
+  neg = false;
+  if constexpr (kSigned) {
+    carry = d > (1u << (kBits - 1)) ? 1u : 0u;
+    if (carry) {
+      d = (1u << kBits) - d;  // 2^kBits (all ones plus a carry) gives 0
+      neg = d != 0u;
+    }
+  }
+  return d;
+}
+
 // The ladder of one lane: from the internal key (x, y), its even-Y form P,
-// t = TapTweak(x), then Q = P + t*G by 32 fixed 8-bit windows (byte w of t
-// selects table[w][digit]; digit 0 adds nothing).  Writes Q's X and Z;
-// returns t < n and no add hit H == 0.
+// t = TapTweak(x), then Q = P + t*G by the fixed windows of
+// LadderWindows<kBits, kSigned> (window w adds table[w][|digit|], negated
+// for a negative digit; a zero digit adds nothing).  Every add is exact:
+// where the lean add meets H == 0 the accumulator was the entry (the sum
+// is its double) or its negation (the sum is the point at infinity, Z =
+// 0, which the next entry replaces).  A small key (d G with |first
+// digit of t| = d) meets this on its first add.  Writes Q's X and Z;
+// returns t < n and Q not at infinity.  The window loop is not unrolled
+// and the digits come out of t by shifts, so t stays in registers.
+template <int kBits, bool kSigned>
 VG_FN bool taptweak_ladder(uint32_t X[8], uint32_t Z[8], const uint32_t x[8],
                            const uint32_t y[8], const uint32_t* table) {
+  using Win = LadderWindows<kBits, kSigned>;
   uint32_t Y[8], t[8], px[8], py[8];
   if (y[0] & 1u) {
     fe_neg(Y, y);
@@ -95,19 +163,43 @@ VG_FN bool taptweak_ladder(uint32_t X[8], uint32_t Z[8], const uint32_t x[8],
   bool ok = below_order(t);
   fe_copy(X, x);
   fe_set_one(Z);
+  uint32_t carry = 0u;
 #pragma unroll 1
-  for (int w = 0; w < 32; w++) {
-    const uint32_t digit = (t[w >> 2] >> (8 * (w & 3))) & 255u;
+  for (int w = 0; w < Win::kWindows; w++) {
+    bool neg;
+    const uint32_t digit = ladder_digit<kBits, kSigned>(t, carry, neg);
     if (digit == 0u) continue;
-    const uint32_t* p = table + ((long)w * 256 + digit) * 16;
+    const uint32_t* p = table + ((long)w * Win::kEntries + digit) * 16;
+#ifdef __CUDACC__
+    // the entry's 64 bytes as four 16-byte loads through the read-only path
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+      const uint4 v = __ldg(q + i);
+      uint32_t* dst = i < 2 ? px + 4 * i : py + 4 * (i - 2);
+      dst[0] = v.x;
+      dst[1] = v.y;
+      dst[2] = v.z;
+      dst[3] = v.w;
+    }
+#else
 #pragma unroll
     for (int i = 0; i < 8; i++) {
-      px[i] = VG_LDG(p + i);
-      py[i] = VG_LDG(p + 8 + i);
+      px[i] = p[i];
+      py[i] = p[8 + i];
     }
-    ok = jacobian_add_affine_lean(X, Y, Z, px, py) && ok;
+#endif
+    if (kSigned && neg) fe_neg(py, py);
+    if (fe_is_zero(Z)) {  // the accumulator is the point at infinity
+      fe_copy(X, px);
+      fe_copy(Y, py);
+      fe_set_one(Z);
+    } else if (!jacobian_add_affine_lean(X, Y, Z, px, py) && fe_is_zero(X)) {
+      // H == 0 left Z = 0 and X = r^2: r == 0, the accumulator was (px, py)
+      affine_double(X, Y, Z, px, py);
+    }
   }
-  return ok;
+  return ok && !fe_is_zero(Z);
 }
 
 // The full affine add of window k's base point and table point b of lane
@@ -141,26 +233,28 @@ VG_FN bool lane_add_all(uint32_t x[8], uint32_t y[8], const uint32_t* bx,
 
 // Kernel F (finish), lane e: the full finish, then the ladder; X and Z
 // stored at e, returns ok (0/1) including dx != 0.
+template <int kBits, bool kSigned>
 VG_FN int32_t p2tr_ladder_lane(const uint32_t* bx, const uint32_t* by,
                                const uint32_t* tx, const uint32_t* ty,
                                const uint32_t* inv, const uint32_t* table,
                                uint32_t* Xo, uint32_t* Zo, long B, long N, long e) {
   uint32_t x[8], y[8], X[8], Z[8];
   const bool valid = lane_add_all(x, y, bx, by, tx, ty, inv, B, N, e);
-  const bool ok = taptweak_ladder(X, Z, x, y, table);
+  const bool ok = taptweak_ladder<kBits, kSigned>(X, Z, x, y, table);
   fe_store(Xo, N, e, X);
   fe_store(Zo, N, e, Z);
   return (ok && valid) ? 1 : 0;
 }
 
 // Kernel F (affine input), lane e: the ladder of the affine key (x, y).
+template <int kBits, bool kSigned>
 VG_FN int32_t p2tr_ladder_affine_lane(const uint32_t* xs, const uint32_t* ys,
                                       const uint32_t* table, uint32_t* Xo,
                                       uint32_t* Zo, long N, long e) {
   uint32_t x[8], y[8], X[8], Z[8];
   fe_load(x, xs, N, e);
   fe_load(y, ys, N, e);
-  const bool ok = taptweak_ladder(X, Z, x, y, table);
+  const bool ok = taptweak_ladder<kBits, kSigned>(X, Z, x, y, table);
   fe_store(Xo, N, e, X);
   fe_store(Zo, N, e, Z);
   return ok ? 1 : 0;

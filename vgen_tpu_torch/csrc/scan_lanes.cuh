@@ -52,14 +52,13 @@ struct GuardedInput {
 
 // Kernels A and G, thread t of T = N / M: a Montgomery chain over the M
 // elements e = t + j*T (strided by the thread count, so each step's loads
-// and stores coalesce).  Forward: exclusive prefix products into scratch.
-// One inversion of the chain total.  Backward: inv[e] = acc * prefix[e],
-// acc *= in(e).  The output is canonical, so the chain geometry does not
-// change the result.
+// and stores coalesce).  Forward: exclusive prefix products into scratch,
+// acc = the chain's total.  The output is canonical, so the chain geometry
+// does not change the result.
 template <class Input>
-VG_FN void inv_chain_thread(const Input& in, uint32_t* out, uint32_t* scratch,
-                            long N, long T, int M, long t) {
-  uint32_t acc[8], v[8], pre[8];
+VG_FN void inv_chain_forward(const Input& in, uint32_t acc[8],
+                             uint32_t* scratch, long N, long T, int M, long t) {
+  uint32_t v[8];
   fe_set_one(acc);
   for (int j = 0; j < M; j++) {
     const long e = t + j * T;
@@ -67,7 +66,15 @@ VG_FN void inv_chain_thread(const Input& in, uint32_t* out, uint32_t* scratch,
     in(v, e);
     fe_mul(acc, acc, v);
   }
-  fe_inv(acc, acc);
+}
+
+// Backward, from acc = the inverse of the chain's total:
+// inv[e] = acc * prefix[e], acc *= in(e).
+template <class Input>
+VG_FN void inv_chain_backward(const Input& in, uint32_t acc[8], uint32_t* out,
+                              const uint32_t* scratch, long N, long T, int M,
+                              long t) {
+  uint32_t v[8], pre[8];
   for (int j = M - 1; j >= 0; j--) {
     const long e = t + j * T;
     fe_load(pre, scratch, N, e);
@@ -78,11 +85,41 @@ VG_FN void inv_chain_thread(const Input& in, uint32_t* out, uint32_t* scratch,
   }
 }
 
-// Kernel A's thread: the chain over the window differences.
-VG_FN void inv_dx_thread(const uint32_t* bx, const uint32_t* tx,
-                         uint32_t* out, uint32_t* scratch, long B, long N,
-                         long T, int M, long t) {
-  inv_chain_thread(DxInput{bx, tx, B}, out, scratch, N, T, M, t);
+// One thread's whole chain with its own inversion (a group of one).
+template <class Input>
+VG_FN void inv_chain_thread(const Input& in, uint32_t* out, uint32_t* scratch,
+                            long N, long T, int M, long t) {
+  uint32_t acc[8];
+  inv_chain_forward(in, acc, scratch, N, T, M, t);
+  fe_inv(acc, acc);
+  inv_chain_backward(in, acc, out, scratch, N, T, M, t);
+}
+
+// The product tree that lets a group of G threads (G a power of two) share
+// one inversion.  Nodes live in a limb-major (8, stride) array, node i
+// (1 <= i < 2G) at column base + i: leaf r (G <= i = G + r < 2G) holds
+// thread r's chain total, node i < G the product of nodes 2i and 2i + 1,
+// so node 1 is the group's product.  Up-sweep: the G - 1 inner nodes,
+// deepest first.  Node 1 is then inverted in place, and the down-sweep
+// turns every node into its inverse, root first: inv(node i) =
+// inv(parent) * sibling.  Leaf r then holds the inverse of thread r's
+// total.  Input zeros are guarded to 1, so no node is zero.
+VG_FN void tree_up(uint32_t* tree, long stride, long base, long i) {
+  uint32_t l[8], r[8];
+  fe_load(l, tree, stride, base + 2 * i);
+  fe_load(r, tree, stride, base + 2 * i + 1);
+  fe_mul(l, l, r);
+  fe_store(tree, stride, base + i, l);
+}
+
+// v = the inverse of node i >= 2, from its parent's inverse (already in
+// the tree) and its sibling's product (not yet replaced).
+VG_FN void tree_down(uint32_t v[8], const uint32_t* tree, long stride,
+                     long base, long i) {
+  uint32_t s[8];
+  fe_load(v, tree, stride, base + (i >> 1));
+  fe_load(s, tree, stride, base + (i ^ 1));
+  fe_mul(v, v, s);
 }
 
 // Lexicographic lo[s] <= w <= hi[s] for any slot s of W words (word 0

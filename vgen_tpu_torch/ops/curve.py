@@ -5,7 +5,8 @@ shares one batch inversion of dx = tx - bx across the batch
 (``fused.batch_inverse_dx``).  On the card ``csrc/scan_lanes.cuh``
 ``lane_add`` does both finishes: x only (kernels B and E) and x and y
 (kernels C and D).  The P2TR tweak ladder (kernel F,
-``csrc/p2tr_lanes.cuh``) accumulates with ``jacobian_add_affine_lean``.
+``csrc/p2tr_lanes.cuh``) accumulates with ``jacobian_add_affine_lean``,
+and doubles with ``affine_double`` where an add meets its own point.
 """
 
 from __future__ import annotations
@@ -61,3 +62,17 @@ def jacobian_add_affine_lean(X1, Y1, Z1, x2, y2):
     Y3 = field.sub(field.mul(r, field.sub(V, X3)), field.mul(Y1, HHH))
     Z3 = field.mul(Z1, H)
     return X3, Y3, Z3, ok
+
+
+def affine_double(x, y):
+    """2 (x, y) in Jacobian coordinates from an affine point (dbl-2009-l
+    with Z1 = 1: 1M + 4S): (X3, Y3, Z3) with Z3 = 2y."""
+    A = field.square(x)
+    Bv = field.square(y)
+    C = field.square(Bv)
+    D = field.mul_small(field.sub(field.sub(field.square(field.add(x, Bv)), A),
+                                  C), 2)
+    E = field.mul_small(A, 3)
+    X3 = field.sub(field.square(E), field.mul_small(D, 2))
+    Y3 = field.sub(field.mul(E, field.sub(D, X3)), field.mul_small(C, 8))
+    return X3, Y3, field.mul_small(y, 2)

@@ -28,8 +28,9 @@ P2TR (no GLV: the tweak rebinds the key) runs four more kernels between
 kernel A and the pack (``csrc/p2tr.cu``):
 
 - F, ``p2tr_ladder``: full finish, even-Y internal key, TapTweak tagged
-  hash t, Q = P + t*G by 32 fixed 8-bit windows of lean Jacobian adds ->
-  X, Z (8, K*B) and ok (K*B,);
+  hash t, Q = P + t*G by fixed windows of lean Jacobian adds (the window
+  schedule is the table's: ``LADDER_WINDOW`` in the product, the 8-bit
+  table of the JAX package too) -> X, Z (8, K*B) and ok (K*B,);
 - G, ``batch_inverse_chain``: canonical inverses of Z, zero guarded to 1;
 - H, ``p2tr_finish_range``: qx = X * zi^2, 8-word interval compare -> 0/1;
 - I, ``p2tr_finish_match``: qx, bech32m symbols, DFA walk -> 0/1.
@@ -68,9 +69,23 @@ DEVICE_FORMATS = tuple(FMT_CODE) + (AddressFormat.P2TR,)
 
 GLV_KEYS = 6  # keys checked per table position: {+-k, +-lk, +-l^2 k}
 
-# elements per thread chain in kernel A (the largest power of two <= this
-# that divides K*B)
+# elements per thread chain of the plain batch inversions (the largest
+# power of two <= this that divides the lane count)
 INV_CHAIN = 64
+# kernels A and G: (M, G), each thread a chain of M elements (the largest
+# power of two <= M that divides the lane count), G threads of a block
+# sharing one inversion (csrc/inv_block.cuh); (64, 1) is one inversion per
+# thread.  Chosen on the card by ``python -m
+# vgen_tpu_torch.probes.sweep_inv_chain``.
+INV_GEOMETRY = (64, 256)
+INV_GROUPS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+# kernel F's window schedules (bits, signed digits) that csrc/p2tr.cu
+# instances (VG_LADDER_WINDOWS), and the product's, chosen on the card by
+# ``python -m vgen_tpu_torch.probes.sweep_ladder_window``
+LADDER_WINDOWS = ((8, False), (12, False), (13, False), (14, False),
+                  (13, True), (14, True), (15, True), (16, True))
+LADDER_WINDOW = (16, True)
 
 
 def _chain_len(n: int, limit: int = INV_CHAIN) -> int:
@@ -136,23 +151,32 @@ def batch_inverse_dx_plain(bx: torch.Tensor, tx: torch.Tensor) -> torch.Tensor:
     return u256.to_i32(inv.reshape(8, K * B))
 
 
+def _inv_geometry(n: int, chain: int, group: int):
+    if group not in INV_GROUPS:
+        raise ValueError(f"inversion group {group}: expected one of "
+                         f"{INV_GROUPS}")
+    return _chain_len(n, chain), group
+
+
 def batch_inverse_dx(bx: torch.Tensor, tx: torch.Tensor,
-                     chain: int = INV_CHAIN) -> torch.Tensor:
+                     chain: int = INV_GEOMETRY[0],
+                     group: int = INV_GEOMETRY[1]) -> torch.Tensor:
     """Kernel A (``csrc/kernels.cu``): same contract as
     ``batch_inverse_dx_plain``, one launch for all K*B lanes, each thread
-    a chain of the largest power of two <= ``chain`` that divides K*B
-    (the output is canonical, so the chain changes no value)."""
+    a chain of the largest power of two <= ``chain`` that divides K*B,
+    ``group`` threads sharing one inversion (the output is canonical, so
+    the geometry changes no value)."""
     if _all_cpu(bx, tx):
         return batch_inverse_dx_plain(bx, tx)
     K, B = bx.shape[0], tx.shape[1]
+    m, g = _inv_geometry(K * B, chain, group)
     dev = _check_cuda("batch_inverse_dx", [("bx", bx, (K, 8)),
                                            ("tx", tx, (8, B))])
     out = torch.empty((8, K * B), dtype=torch.int32, device=dev)
     scratch = torch.empty_like(out)
     with torch.cuda.device(dev):
         _launch("kernels", "batch_inverse_dx", bx.data_ptr(), tx.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), K, B,
-                _chain_len(K * B, chain), _stream(dev))
+                out.data_ptr(), scratch.data_ptr(), K, B, m, g, _stream(dev))
     batch_inverse_dx.launches += 1
     return out
 
@@ -478,30 +502,96 @@ def fused_scan_mask_step(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start,
 TAPTWEAK_MIDSTATE = sha256.tagged_midstate("TapTweak")
 
 
+def ladder_shape(bits: int, signed: bool):
+    """(windows, entries) of the ladder table for digits of ``bits`` bits
+    (``csrc/p2tr_lanes.cuh`` LadderWindows): unsigned, ceil(256 / bits)
+    windows of 2^bits entries; signed, ceil(257 / bits) windows of
+    2^(bits-1) + 1 (|d|; the last digit has room for the recoding's
+    carry)."""
+    if signed:
+        return -(-257 // bits), (1 << (bits - 1)) + 1
+    return -(-256 // bits), 1 << bits
+
+
+def ladder_schedule(wt: torch.Tensor):
+    """(bits, signed) of a ladder table, read from its shape (windows,
+    entries, 2, 8): 2^bits entries are unsigned digits, 2^(bits-1) + 1
+    signed ones."""
+    if wt.dim() != 4 or tuple(wt.shape[2:]) != (2, 8):
+        raise ValueError(f"ladder table of shape {tuple(wt.shape)}, expected "
+                         "(windows, entries, 2, 8)")
+    windows, entries = wt.shape[:2]
+    signed = entries & (entries - 1) != 0
+    bits = (entries - 1).bit_length()
+    if not 2 <= bits <= 31 or ladder_shape(bits, signed) != (windows,
+                                                             entries):
+        raise ValueError(f"ladder table of shape {tuple(wt.shape)} is no "
+                         "window schedule")
+    return bits, signed
+
+
+def ladder_digits(t, bits: int, signed: bool):
+    """The digits of t ((8, N) int64 32-bit limbs) in the ladder's order,
+    least significant first: [(|d|, negative)] of (N,) int64 and bool,
+    one per window (``csrc/p2tr_lanes.cuh`` ladder_digit)."""
+    windows, _ = ladder_shape(bits, signed)
+    mask, half = (1 << bits) - 1, 1 << (bits - 1)
+    carry = torch.zeros_like(t[0])
+    out = []
+    for w in range(windows):
+        limb, off = divmod(bits * w, 32)
+        v = t[limb] >> off if limb < 8 else torch.zeros_like(t[0])
+        if off + bits > 32 and limb + 1 < 8:
+            v = v | (t[limb + 1] << (32 - off))
+        d = (v & mask) + carry
+        if signed:
+            neg = d > half
+            carry = neg.to(torch.int64)
+            d = torch.where(neg, (1 << bits) - d, d)
+            neg = neg & (d != 0)
+        else:
+            neg = torch.zeros_like(d, dtype=torch.bool)
+        out.append((d, neg))
+    return out
+
+
 def _taptweak_ladder(x, y, wt):
     """Q = P + t*G for the internal keys (x, y) ((8, N) int64): the even-Y
-    key P, t = the TapTweak tagged hash of x, then 32 fixed 8-bit windows,
-    window w adding table[w][byte w of t] by a lean Jacobian add (digit 0
-    adds nothing; the table's d = 0 row is filler).  -> (X, Z, ok): ok is
-    t < n and no add hit H == 0."""
+    key P, t = the TapTweak tagged hash of x, then the table's windows
+    (``ladder_schedule``), window w adding table[w][|digit w|], negated
+    for a negative digit, by a lean Jacobian add (digit 0 adds nothing;
+    the table's d = 0 row is filler).  Every add is exact: where the lean
+    add meets H == 0 the sum is the entry's double (``affine_double``) or
+    the point at infinity (Z = 0, which the next entry replaces).  -> (X,
+    Z, ok): ok is t < n and Q not at infinity."""
+    bits, signed = ladder_schedule(wt)
     y = u256.select((y[0] & 1) == 0, y, field.neg(y))
     t = sha256.tagged_hash_32(TAPTWEAK_MIDSTATE, x)
     _, borrow = u256.sub(t, u256.constant(field.N_INT, t))
     ok = borrow == 1  # t < n
-    wt64 = u256.to_i64(wt)  # (32, 256, 2, 8)
+    wt64 = u256.to_i64(wt)  # (windows, entries, 2, 8)
     X, Y = x, y
-    Z = u256.constant(1, x).expand_as(x)
-    for w in range(32):
-        digit = (t[w // 4] >> (8 * (w % 4))) & 255
+    Z = one = u256.constant(1, x).expand_as(x)
+    for w, (digit, neg) in enumerate(ladder_digits(t, bits, signed)):
         pt = wt64[w][digit]  # (N, 2, 8)
-        Xn, Yn, Zn, add_ok = curve.jacobian_add_affine_lean(
-            X, Y, Z, pt[:, 0].T, pt[:, 1].T)
+        px, py = pt[:, 0].T, pt[:, 1].T
+        py = u256.select(neg, field.neg(py), py)
+        Xn, Yn, Zn, add_ok = curve.jacobian_add_affine_lean(X, Y, Z, px, py)
+        # H == 0 left Zn = 0 and Xn = r^2: r == 0 doubles the entry, else
+        # the sum is the point at infinity (Zn = 0)
+        dbl = ~add_ok & u256.is_zero(Xn)
+        if bool(dbl.any()):
+            Xd, Yd, Zd = curve.affine_double(px, py)
+            Xn, Yn, Zn = (u256.select(dbl, d, n)
+                          for d, n in ((Xd, Xn), (Yd, Yn), (Zd, Zn)))
+        inf = u256.is_zero(Z)  # from infinity: the sum is the entry
+        Xn, Yn, Zn = (u256.select(inf, e, n)
+                      for e, n in ((px, Xn), (py, Yn), (one, Zn)))
         nz = digit != 0
-        ok = ok & (add_ok | ~nz)
         X = u256.select(nz, Xn, X)
         Y = u256.select(nz, Yn, Y)
         Z = u256.select(nz, Zn, Z)
-    return X, Z, ok
+    return X, Z, ok & ~u256.is_zero(Z)
 
 
 def _ladder_out(X, Z, ok):
@@ -510,7 +600,8 @@ def _ladder_out(X, Z, ok):
 
 def p2tr_ladder_plain(bx, by, tx, ty, inv, wt):
     """Plain version of kernel F.  bx, by (K, 8); tx, ty (8, B);
-    inv (8, K*B) from kernel A; wt (32, 256, 2, 8) the window table; all
+    inv (8, K*B) from kernel A; wt (windows, entries, 2, 8) a ladder table
+    (``scan.tables.ladder_table``, or the 8-bit ``window_table``); all
     int32 -> (X, Z (8, K*B) int32 Jacobian output keys, ok (K*B,) int32):
     the full finish B + T of lane k*B + b, then ``_taptweak_ladder``; ok
     also needs dx != 0.  Dead lanes are computed like the others and
@@ -529,23 +620,35 @@ def p2tr_ladder_affine_plain(x, y, wt):
     return _ladder_out(*_taptweak_ladder(u256.to_i64(x), u256.to_i64(y), wt))
 
 
+def _kernel_schedule(name: str, wt):
+    bits, signed = ladder_schedule(wt)
+    if (bits, signed) not in LADDER_WINDOWS:
+        raise ValueError(f"{name}: no kernel instance for {bits}-bit "
+                         f"{'signed' if signed else 'unsigned'} digits; "
+                         f"csrc/p2tr.cu has {LADDER_WINDOWS}")
+    return bits, signed
+
+
 def p2tr_ladder(bx, by, tx, ty, inv, wt):
     """Kernel F (``csrc/p2tr.cu``, finish=True): same contract as
-    ``p2tr_ladder_plain``, one launch for all K*B lanes."""
+    ``p2tr_ladder_plain``, one launch for all K*B lanes, the instance of
+    the table's window schedule."""
     if _all_cpu(bx, by, tx, ty, inv, wt):
         return p2tr_ladder_plain(bx, by, tx, ty, inv, wt)
     K, B = bx.shape[0], tx.shape[1]
+    bits, signed = _kernel_schedule("p2tr_ladder", wt)
     dev = _check_cuda("p2tr_ladder", [
         ("bx", bx, (K, 8)), ("by", by, (K, 8)), ("tx", tx, (8, B)),
         ("ty", ty, (8, B)), ("inv", inv, (8, K * B)),
-        ("wt", wt, (32, 256, 2, 8))])
+        ("wt", wt, tuple(wt.shape))])
     X = torch.empty((8, K * B), dtype=torch.int32, device=dev)
     Z = torch.empty_like(X)
     ok = torch.empty((K * B,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch("p2tr", "p2tr_ladder", bx.data_ptr(), by.data_ptr(),
                 tx.data_ptr(), ty.data_ptr(), inv.data_ptr(), wt.data_ptr(),
-                X.data_ptr(), Z.data_ptr(), ok.data_ptr(), K, B, _stream(dev))
+                X.data_ptr(), Z.data_ptr(), ok.data_ptr(), K, B, bits,
+                int(signed), _stream(dev))
     p2tr_ladder.launches += 1
     return X, Z, ok
 
@@ -560,15 +663,16 @@ def p2tr_ladder_affine(x, y, wt):
     if _all_cpu(x, y, wt):
         return p2tr_ladder_affine_plain(x, y, wt)
     N = x.shape[1]
+    bits, signed = _kernel_schedule("p2tr_ladder_affine", wt)
     dev = _check_cuda("p2tr_ladder_affine", [
-        ("x", x, (8, N)), ("y", y, (8, N)), ("wt", wt, (32, 256, 2, 8))])
+        ("x", x, (8, N)), ("y", y, (8, N)), ("wt", wt, tuple(wt.shape))])
     X = torch.empty((8, N), dtype=torch.int32, device=dev)
     Z = torch.empty_like(X)
     ok = torch.empty((N,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch("p2tr", "p2tr_ladder_affine", x.data_ptr(), y.data_ptr(),
                 wt.data_ptr(), X.data_ptr(), Z.data_ptr(), ok.data_ptr(), N,
-                _stream(dev))
+                bits, int(signed), _stream(dev))
     p2tr_ladder.launches += 1
     return X, Z, ok
 
@@ -585,20 +689,22 @@ def batch_inverse_chain_plain(values: torch.Tensor) -> torch.Tensor:
     return u256.to_i32(inv.reshape(8, N))
 
 
-def batch_inverse_chain(values: torch.Tensor) -> torch.Tensor:
+def batch_inverse_chain(values: torch.Tensor, chain: int = INV_GEOMETRY[0],
+                        group: int = INV_GEOMETRY[1]) -> torch.Tensor:
     """Kernel G (``csrc/p2tr.cu``): same contract as
-    ``batch_inverse_chain_plain``, one launch (forward, inversion and
-    backward pass)."""
+    ``batch_inverse_chain_plain``, one launch (forward, the group's
+    inversion and backward pass) in kernel A's geometry (``chain``,
+    ``group``)."""
     if _all_cpu(values):
         return batch_inverse_chain_plain(values)
     N = values.shape[1]
+    m, g = _inv_geometry(N, chain, group)
     dev = _check_cuda("batch_inverse_chain", [("values", values, (8, N))])
     out = torch.empty_like(values)
     scratch = torch.empty_like(values)
     with torch.cuda.device(dev):
         _launch("p2tr", "batch_inverse_chain", values.data_ptr(),
-                out.data_ptr(), scratch.data_ptr(), N, _chain_len(N),
-                _stream(dev))
+                out.data_ptr(), scratch.data_ptr(), N, m, g, _stream(dev))
     batch_inverse_chain.launches += 1
     return out
 
@@ -719,7 +825,7 @@ def _p2tr_ladder_zi(bx, by, tx, ty, wt):
 
 def fused_p2tr_range_mask_step(bx, by, tx, ty, lo, hi, remaining, wt):
     """Kernels A, F, G, H: bx, by (K, 8); tx, ty (8, B); lo, hi
-    (n_slots, 8); remaining (K,); wt (32, 256, 2, 8); all int32 -> (K, B)
+    (n_slots, 8); remaining (K,); wt a ladder table; all int32 -> (K, B)
     int32 0/1 masks (overflow recovery)."""
     X, Z, zi, ok = _p2tr_ladder_zi(bx, by, tx, ty, wt)
     return p2tr_finish_range(X, Z, zi, ok, lo, hi, remaining)

@@ -33,8 +33,9 @@ The counts, per lane:
   each), the fold of the high half by 977 (8 more), the fold's one-limb
   shift (8 adds) and a 16-op conditional subtract of p;
 - field squaring: 36 distinct partial products, the 28 cross products
-  doubled by a 16-op shift, then the same fold and subtract (whatever
-  ``fe_sqr`` does today: it is ``fe_mul(a, a)``);
+  doubled by a 16-op shift, then the same fold and subtract: what the
+  product's ``fe_sqr`` does (the ``fe_sqr`` probe times ``fe_mul(a, a)``,
+  for which this count is a lower bound too);
 - modular add or subtract: 8 carrying adds and 8 for the fix-up;
 - SHA-256 compression (``sha256_ops``): 64 rounds of 14 (per Sigma three
   funnel-shift rotates and one three-input XOR, one LOP3 each for Ch and

@@ -1,5 +1,6 @@
 // Field-multiply forms the product does not use yet, timed by the probes
-// beside the production ones (csrc/field.cuh): a dedicated squaring, the
+// beside the production ones (csrc/field.cuh): the squaring as a full
+// multiply (the product's squaring before its dedicated one), the
 // 512-bit product written in PTX carry chains, and the product split into
 // column sums with no carry and a separate carry pass (the TPU's
 // "nocarry" form), and the whole multiply in that form.  Like the headers
@@ -11,40 +12,10 @@
 
 namespace vg {
 
-// r = a^2 mod p with 36 products: the 28 cross products a[i] a[j] (i < j)
-// in rows with 64-bit carry chains, doubled by a one-bit shift, plus the
-// 8 squares a[i]^2, then the production fold.
-VG_FN void fe_sqr_dedicated(uint32_t r[8], const uint32_t a[8]) {
-  uint32_t t[16];
-#pragma unroll
-  for (int i = 0; i < 16; i++) t[i] = 0u;
-#pragma unroll
-  for (int i = 0; i < 7; i++) {
-    u64 c = 0;
-#pragma unroll
-    for (int j = i + 1; j < 8; j++) {
-      c += (u64)a[i] * a[j] + t[i + j];
-      t[i + j] = (uint32_t)c;
-      c >>= 32;
-    }
-    t[i + 8] = (uint32_t)c;
-  }
-  // the cross sum is below 2^511, so doubling it cannot carry out
-#pragma unroll
-  for (int i = 15; i > 0; i--) t[i] = (t[i] << 1) | (t[i - 1] >> 31);
-  t[0] <<= 1;
-  u64 c = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    const u64 sq = (u64)a[i] * a[i];
-    c += (u64)t[2 * i] + (uint32_t)sq;
-    t[2 * i] = (uint32_t)c;
-    c = (c >> 32) + (u64)t[2 * i + 1] + (sq >> 32);
-    t[2 * i + 1] = (uint32_t)c;
-    c >>= 32;
-  }
-  fe_reduce512(r, t);
-}
+// r = a^2 mod p as the full multiply fe_mul(a, a): the squaring the
+// product used before csrc/field.cuh gained its dedicated fe_sqr, kept so
+// that the probes time both.
+VG_FN void fe_sqr_by_mul(uint32_t r[8], const uint32_t a[8]) { fe_mul(r, a, a); }
 
 // t = a * b in 16 limbs by PTX carry chains: row i adds a[i] * b into
 // t[i..i+8] as a chain of mad.lo.cc over the low halves (its carry into

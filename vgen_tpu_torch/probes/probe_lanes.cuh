@@ -81,8 +81,8 @@ VG_FN void primitive_rep(uint32_t a[8], uint32_t b[8], const int32_t* table) {
                        kPrim == kFeSqrDedicated || kPrim == kTagged) {
     uint32_t out[8];
     if constexpr (kPrim == kFeMul) fe_mul(out, a, b);
-    if constexpr (kPrim == kFeSqr) fe_sqr(out, a);
-    if constexpr (kPrim == kFeSqrDedicated) fe_sqr_dedicated(out, a);
+    if constexpr (kPrim == kFeSqr) fe_sqr_by_mul(out, a);
+    if constexpr (kPrim == kFeSqrDedicated) fe_sqr(out, a);
     if constexpr (kPrim == kTagged) taptweak_hash(out, a);
     feedback<8>(a, b, out);
   } else if constexpr (kPrim == kHash160c || kPrim == kHash160u) {

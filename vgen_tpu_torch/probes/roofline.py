@@ -25,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from vgen_tpu_torch.ops import curve, encode, field, keccak, sha256, u256
+from vgen_tpu_torch.ops import curve, encode, field, fused, keccak, sha256, u256
 from vgen_tpu_torch.probes import bound_model as bm
 from vgen_tpu_torch.probes import common, timing
 
@@ -53,13 +53,34 @@ R0, MAX_REPS = 8, 1 << 14
 
 # Kernels A to I as primitives per lane (the scan's K = 8 windows of B =
 # 524288), for the composition; the finish counts field multiplies and
-# squarings only, the inversion is spread over the chain of 64, P2TR's
-# ladder adds 31.875 windows (255/256 of 32 digits nonzero), and
-# bech32m, which no primitive times, counts as nothing.
-_GLV_FINISH = {"fe_mul": 3, "fe_sqr": 1}  # x-only finish, beta x, beta^2 x
-_GLV_FINISH_XY = {"fe_mul": 4, "fe_sqr": 1}  # the full finish and the betas
-_FINISH = {"fe_mul": 2, "fe_sqr": 1}
-_CHAIN = {"fe_mul": 3 + 15 / 64, "fe_sqr": 255 / 64}
+# squarings only (the product squares with the dedicated squaring; the
+# ``fe_sqr`` probe times the full multiply fe_mul(a, a)), the inversion and
+# the product tree are spread over kernels A's and G's groups
+# (``fused.INV_GEOMETRY``), P2TR's ladder adds its schedule's expected
+# nonzero digits (``fused.LADDER_WINDOW``), and the negations of signed
+# digits and bech32m, which no primitive times, count as nothing.
+SQR = "fe_sqr_dedicated"
+
+
+def expected_adds(bits: int, signed: bool) -> float:
+    """The ladder's nonzero digits for a uniform t < 2^256: 1 - 2^-bits a
+    window, but the last, which holds the top bits and, for signed digits,
+    the carry (zero one time in two)."""
+    windows, _ = fused.ladder_shape(bits, signed)
+    top = 256 - bits * (windows - 1)
+    last = 1 - 2.0 ** -top * (0.5 if signed else 1)
+    return (windows - 1) * (1 - 2.0 ** -bits) + last
+
+
+def _chain(m: int, g: int):
+    shared = m * g
+    return {"fe_mul": 3 + (15 + 3 * (g - 1)) / shared, SQR: 255 / shared}
+
+
+_GLV_FINISH = {"fe_mul": 3, SQR: 1}  # x-only finish, beta x, beta^2 x
+_GLV_FINISH_XY = {"fe_mul": 4, SQR: 1}  # the full finish and the betas
+_FINISH = {"fe_mul": 2, SQR: 1}
+_CHAIN = _chain(*fused.INV_GEOMETRY)
 _VALUE = {"p2pkh": {"hash160c": 1},
           "p2sh-p2wpkh": {"hash160c": 1, "scripthash": 1},
           "p2pkh-uncompressed": {"hash160u": 1},
@@ -78,11 +99,11 @@ def _plus(*parts, times=1):
 
 def _kernel_recipes():
     recipes = {"batch_inverse_dx": _CHAIN, "batch_inverse_chain": _CHAIN,
-               "p2tr_ladder": _plus(_FINISH, {"tagged": 1,
-                                              "leanadd": 32 * 255 / 256}),
-               "p2tr_finish_range": {"fe_mul": 1, "fe_sqr": 1},
-               "p2tr_finish_match": {"fe_mul": 1, "fe_sqr": 1,
-                                     "dfachar60": 60}}
+               "p2tr_ladder": _plus(_FINISH, {
+                   "tagged": 1,
+                   "leanadd": expected_adds(*fused.LADDER_WINDOW)}),
+               "p2tr_finish_range": {"fe_mul": 1, SQR: 1},
+               "p2tr_finish_match": {"fe_mul": 1, SQR: 1, "dfachar60": 60}}
     for f, value in _VALUE.items():
         sfx = "" if f == "p2pkh" else f"[{f}]"
         glv = _GLV_FINISH_XY if f in ("p2pkh-uncompressed", "ethereum") \

@@ -202,10 +202,11 @@ def loop_opcodes(sass: str) -> Counter:
 
 
 def template_args(kernel: str, mangled: str) -> Optional[tuple]:
-    """The integer template arguments of an instance of the kernel template
-    ``kernel`` from its mangled name, or None for another function."""
-    m = re.search(kernel + r"I((?:Li\d+E)+)E", mangled)
-    return (tuple(int(x) for x in re.findall(r"Li(\d+)E", m.group(1)))
+    """The integer (and bool, as 0/1) template arguments of an instance of
+    the kernel template ``kernel`` from its mangled name, or None for
+    another function."""
+    m = re.search(kernel + r"I((?:L[bi]\d+E)+)E", mangled)
+    return (tuple(int(x) for x in re.findall(r"L[bi](\d+)E", m.group(1)))
             if m else None)
 
 

@@ -67,7 +67,7 @@ class DeviceScanner:
             raise RuntimeError("DeviceScanner: no CUDA device is visible")
         self.tx, self.ty = tables.ig_table(batch_size, self.device)
         # the P2TR ladder's window table, uploaded once per scanner
-        self.wt = (tables.window_table(self.device)
+        self.wt = (tables.ladder_table(self.device)
                    if fmt == AddressFormat.P2TR else None)
 
     def _plan_intervals(self, pattern: Pattern, config: ScanConfig):

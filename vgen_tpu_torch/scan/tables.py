@@ -1,6 +1,7 @@
 """The host-built tables the scan kernels read: the i*G table the scan adds
-its window base points to, and the fixed-window t*G table of the P2TR
-tweak ladder.
+its window base points to, and the fixed-window t*G tables of the P2TR
+tweak ladder (``ladder_table``, at any window schedule kernel F takes; the
+JAX package's 8-bit ``window_table`` among them).
 
 Both are built on the host by the port's own oracle
 (``vgen_tpu_torch.crypto.secp256k1``), cached as npz files in
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from vgen_tpu_torch.crypto import secp256k1 as ec
-from vgen_tpu_torch.ops import u256
+from vgen_tpu_torch.ops import fused, u256
 
 CACHE_DIR = os.path.normpath(os.path.join(
     os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir,
@@ -80,8 +81,47 @@ def ig_table(count: int, device) -> tuple:
 def window_table(device) -> torch.Tensor:
     """(32, 256, 2, 8) int32 limbs of the P2TR ladder's table on
     ``device``: entry [w, d] is the affine (x, y) of d * 2^(8w) * G, the
-    d = 0 rows zero filler (a zero digit adds nothing).  512 KB, uploaded
-    once per scanner; the kernel reads it by index, so L2 holds it."""
+    d = 0 rows zero filler (a zero digit adds nothing).  512 KB: the JAX
+    package's table, the 8-bit unsigned schedule of ``ladder_table``."""
     tbl16 = window_table_u32(8)  # (32, 256, 2, 16)
     tbl32 = u256.limbs16_to_32(np.moveaxis(tbl16, 3, 0))  # (8, 32, 256, 2)
     return u256.as_i32(np.moveaxis(tbl32, 0, 3)).to(device)
+
+
+def ladder_table_limbs(bits: int, signed: bool,
+                       refresh: bool = False) -> np.ndarray:
+    """(windows, entries, 2, 8) uint32 32-bit limbs of the ladder table of
+    digits of ``bits`` bits (``fused.ladder_shape``): entry [w, d] is the
+    affine (x, y) of d * 2^(bits w) * G, the d = 0 rows zero filler.
+    Unlike ``window_table_u32`` (the copy of the JAX package's builder,
+    which floors the window count), the windows cover all 256 bits of t,
+    and signed digits' carry.  Each window is one ``multiples_table`` run
+    (a Jacobian add chain and one batched normalization), packed through
+    bytes.  Disk-cached; ``refresh`` rebuilds and rewrites the cache."""
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    kind = "s" if signed else "u"
+    path = os.path.join(CACHE_DIR, f"torch_ladder_table_{bits}{kind}.npz")
+    if os.path.exists(path) and not refresh:
+        with np.load(path) as z:
+            return z["tbl"]
+    windows, entries = fused.ladder_shape(bits, signed)
+    tbl = np.zeros((windows, entries, 2, 8), dtype=np.uint32)
+    base: ec.Point = ec.G
+    for w in range(windows):
+        row = ec.multiples_table(base, entries - 1)
+        for c in (0, 1):
+            buf = b"".join(p[c].to_bytes(32, "little") for p in row)
+            tbl[w, 1:, c] = np.frombuffer(buf, dtype="<u4").reshape(-1, 8)
+        for _ in range(bits):  # the next window's base, 2^bits * base
+            base = ec.point_double(base)
+    _save_npz(path, tbl=tbl)
+    return tbl
+
+
+def ladder_table(device, bits: int = fused.LADDER_WINDOW[0],
+                 signed: bool = fused.LADDER_WINDOW[1]) -> torch.Tensor:
+    """The ladder table of ``ladder_table_limbs`` as int32 on ``device``
+    (default: the product's schedule, ``fused.LADDER_WINDOW``: 16-bit
+    signed digits, 17 windows of 32769 entries, 34 MiB, which the card's
+    50 MB L2 holds), uploaded once per scanner."""
+    return u256.as_i32(ladder_table_limbs(bits, signed)).to(device)
