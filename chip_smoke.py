@@ -22,12 +22,15 @@ Phases (each prints what it found; any failure raises and exits non-zero):
    (K = 8, B = 524288) with CUDA events, outputs compared again; kernel A
    also at (M, G) = (64, 1), once, beside the product's geometry;
 7. a timed benchmark_device run (^1BenchNeverMatches, about 10 s);
-8. kernel C (range_match) and the pack against the plain versions on CPU:
-   K = 2, B = 8192, one window based below B (it holds the doubling lane),
-   a partial window, an exact-address pattern whose key's lane must be set;
+8. kernel C (range_match) and the pack against the plain versions on CPU,
+   P2PKH and P2WPKH: K = 2, B = 8192, one window based below B (it holds
+   the doubling lane), a partial window, an exact-address pattern whose
+   key's lane must be set;
 9. kernels D (dfa_match) and E (glv_dfa_match) and the pack against the
    plain versions on CPU, P2PKH and P2WPKH, patterns c[a4]t and a.{8}$
-   (more than 256 DFA states); masks and rows bit-equal, matches > 0;
+   (514 DFA states, over D's shared-memory budget: D takes it in the
+   global form and refuses the shared one); D in both table forms where
+   the table fits; masks and rows bit-equal, matches > 0;
 10. the random DFA path at full width through the CLI: ``generate -p Cat$
     -c 3`` and ``generate -f p2wpkh -p zzz$ -c 3``; oracle-confirmed;
     kernels A and E launched, B not;
@@ -37,11 +40,18 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     leg 2 (through the CLI) starts at the saved next_key and returns
     0x3D94CD64, its operations the total since the range's start;
 13. a full-width DFA range of two windows (1048576 keys, [Cc]at, -c 0)
-    through kernels A and D: the match set equals the native CPU
-    scanner's over the same range, key for key;
+    through kernels A and D (the shared form): the match set equals the
+    native CPU scanner's over the same range, key for key; the same range
+    on a.{8}$ -c 1 through D's global form, and P2WPKH's DFA range ([Cc]at,
+    -c 0) and interval range (^bc1qq, -c 1), each equal to the native
+    scanner's;
 14. kernels C, D and E and their plain versions timed at K = 8,
-    B = 524288 on patterns that hit often (^1C, [Cc]at, Cat$), outputs
-    compared again, matching lanes > 0 for each;
+    B = 524288 on patterns that hit often (^1C, [Cc]at, Cat$; P2WPKH
+    ^bc1qq and [Cc]at), outputs compared again, matching lanes > 0 for
+    each: C and D for P2PKH and P2WPKH, D in both table forms (the rows
+    ``dfa_match[global]``, ``range_match[p2wpkh]``, ``dfa_match[p2wpkh]``);
+    C and D on the per-lane grid (the probe unit's ``c_lane``, ``d_lane``)
+    timed once beside, their outputs held to the product's;
 15. a timed benchmark_device run on a DFA pattern that never matches
     (BenchNeverMatches$, P2PKH, GLV, about 5 s) through kernel E;
 16. the ladder table of the product's window schedule
@@ -73,7 +83,10 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     Ethereum (csrc/kernels.cu) against their plain versions on CPU: real
     tables and base points, K = 2, B = 8192, one window based below B;
     interval patterns ^3A, ^1A, ^0x1, ^0xab and DFA patterns c[a4]t, Ab$
-    and a.{8}$; masks and packed rows bit-equal, matching lanes > 0;
+    and a.{8}$, D also on a.{10}$ for Ethereum (over the shared form's
+    cap there);
+    D in each table form a table takes; masks and packed rows bit-equal,
+    matching lanes > 0;
 23. ``generate -f <fmt> -c 3`` at full width for each of the three formats
     on an interval pattern (^3Ab, ^1Ab, ^0xabc: kernels A and B, not E) and
     a DFA pattern (Cat$, Cat$, Abc$: A and E, not B), oracle-confirmed; and
@@ -109,7 +122,13 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     524288 lanes; 1024 x 128 lanes of 8192 steps; 2^20 lanes at R = 8),
     its launches counted, held bit-equal to its plain version on the card
     (and the tiles to kernel B) and against its bound, with the new
-    kernels' ptxas figures.
+    kernels' ptxas figures; and probe_single_key's 11 modes (kernel D
+    cut by stage; C and D over the persistent tile loop, D with symbol
+    arrays, and both on the per-lane grid) the same way at two windows of
+    4096 lanes and at profile_dfa's K = 8 windows of 524288;
+29. the range DFA rate per format: 64 whole super-steps (268,435,456
+    keys) of a never-matching suffix through kernels A and D (in the form
+    its table takes), after one warm-up super-step.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Tolerance everywhere: exact (the values are integers).  The line
@@ -118,7 +137,10 @@ JSON.
 
 The JSON line names the instances of kernels B to E for the three formats
 of phases 22-26 ``<kernel>[<format>]``; their launches are those of the
-format's path run (phases 23 and 24).  The probes' rows are
+format's path run (phases 23 and 24).  Phase 14 adds P2WPKH's C and D
+(launches from phase 13's P2WPKH ranges) and ``dfa_match[global]``, D's
+int32 form, whose launches are those of the a.{8}$ range; D's launches
+are counted per form (``fused.dfa_match.forms``).  The probes' rows are
 ``<kernel>[<instance>]`` with ``ms`` the time of one launch of 2R
 repetitions (best of five), and their launches those of that timing; the
 log gives t(2R) - t(R) beside it, the tools' cost of R repetitions, which
@@ -139,7 +161,10 @@ check.  The counts follow the work of the configuration that ran: the
 ladder's adds and negations are the nonzero and negative digits of this
 run's tweaks in its schedule (``probes/sweep_ladder_window.py``
 ``ladder_count``), kernels A and G share one inversion and a product
-tree per group (``probes/sweep_inv_chain.py`` ``chain_count``).  A
+tree per group (``probes/sweep_inv_chain.py`` ``chain_count``), kernel D
+walks Base58Check in its register form (``bound_model.B58_WALK``) and
+reads its table once in the form it takes (the narrow form's 2 bytes an
+entry and 1 a state in shared memory, or the int32 table).  A
 kernel timed below its bound fails the run: the model would then count
 more than the work needs.
 """
@@ -213,7 +238,8 @@ def main():
     from vgen_tpu_torch.csrc import build
     from vgen_tpu_torch.ops import curve, fused, pipeline, u256
     from vgen_tpu_torch.probes.bound_model import (
-        B58_SYMBOLS, BECH32M, DFA_STEP, EIP55_SYMBOLS, FE_ADD, FE_MUL, FE_SQR,
+        B58_SYMBOLS, B58_WALK, BECH32, BECH32M, DFA_STEP, EIP55_SYMBOLS,
+        FE_ADD, FE_MUL, FE_SQR, FINISH_XY,
         HASH160, KECCAK, KECCAK_X_ONLY, RIPEMD160, SCRIPT_HASH, SHA256_X65,
         SHA256_X65_PAIR, bound, compare)
     from vgen_tpu_torch.probes import bound_model
@@ -260,9 +286,14 @@ def main():
     def reset_launches():
         for w in wrappers.values():
             w.launches = 0
+        for form in fused.DFA_FORMS:
+            fused.dfa_match.forms[form] = 0
 
     def read_launches():
-        return {n: w.launches for n, w in wrappers.items()}
+        got = {n: w.launches for n, w in wrappers.items()}
+        got.update({f"dfa_match[{form}]": n
+                    for form, n in fused.dfa_match.forms.items()})
+        return got
 
     def run_cli(argv, quiet=True):
         """cli.run_from_args with jsonl output -> (rows, stderr, seconds)."""
@@ -500,55 +531,90 @@ def main():
     K, B = 2, 8192
     bases8 = [1 + B // 2, 0x5EED5EED5EED]  # window 0: doubling lane at B/2
     key8 = bases8[0] + 1 + 1234
-    pat8 = Pattern("^" + AddressGenerator(fmt).generate(
-        key8.to_bytes(32, "big")).address + "$")
-    lo8, hi8 = lo_hi(pat8, fmt)
     bx8, by8 = base_points(bases8)
     rem8 = torch.tensor([B, B - 100], dtype=torch.int32)
     inv8 = fused.batch_inverse_dx(bx8, txs)
     cpu8 = (bx8, by8, txs, tys, inv8)
     dev8 = tuple(t.to(dev) for t in cpu8)
     rem8_d = rem8.to(dev)
-    mask_c = fused.range_match(fmt, *cpu8, lo8, hi8, rem8)
-    mask_d = fused.range_match(fmt, *dev8, lo8.to(dev), hi8.to(dev), rem8_d)
-    rows_d = fused.pack_tail(mask_d, rem8_d, 1)
-    torch.cuda.synchronize()
-    err_c = max_abs_err(mask_d.cpu(), mask_c)
-    require(err_c == 0, f"kernel C differs from its plain version ({err_c})")
-    require(torch.equal(rows_d.cpu(), fused.pack_tail(mask_c, rem8, 1)),
-            "kernel C: packed rows differ")
-    require(int(mask_c[0, 1234]) == 1 and int(mask_c.sum()) == 1,
-            "kernel C: the exact key's lane is not the only one set")
-    require(int(mask_c[0, bases8[0] - 1]) == 0, "kernel C: doubling lane set")
-    log(f"[8] kernel C + pack == plain on K={K} B={B} (doubling-lane window, "
-        f"remaining {rem8.tolist()}): key {hex(key8)} at lane 1234, rows "
-        f"{rows_d[:, :3].tolist()}")
+    err_c = {}
+    for fmt8 in (AddressFormat.P2PKH, AddressFormat.P2WPKH):
+        pat8 = Pattern("^" + AddressGenerator(fmt8).generate(
+            key8.to_bytes(32, "big")).address + "$")
+        lo8, hi8 = lo_hi(pat8, fmt8)
+        mask_c = fused.range_match(fmt8, *cpu8, lo8, hi8, rem8)
+        mask_d = fused.range_match(fmt8, *dev8, lo8.to(dev), hi8.to(dev),
+                                   rem8_d)
+        rows_d = fused.pack_tail(mask_d, rem8_d, 1)
+        torch.cuda.synchronize()
+        err_c[fmt8] = max_abs_err(mask_d.cpu(), mask_c)
+        require(err_c[fmt8] == 0, f"kernel C {fmt8.value} differs from its "
+                f"plain version ({err_c[fmt8]})")
+        require(torch.equal(rows_d.cpu(), fused.pack_tail(mask_c, rem8, 1)),
+                f"kernel C {fmt8.value}: packed rows differ")
+        require(int(mask_c[0, 1234]) == 1 and int(mask_c.sum()) == 1,
+                f"kernel C {fmt8.value}: the exact key's lane is not the "
+                "only one set")
+        require(int(mask_c[0, bases8[0] - 1]) == 0,
+                f"kernel C {fmt8.value}: doubling lane set")
+        log(f"[8] kernel C {fmt8.value} + pack == plain on K={K} B={B} "
+            f"(doubling-lane window, remaining {rem8.tolist()}): key "
+            f"{hex(key8)} at lane 1234, rows {rows_d[:, :3].tolist()}")
 
     # -- 9. kernels D, E + pack vs plain -----------------------------------
     err_de = {"dfa_match": 0, "glv_dfa_match": 0}
+
+    def d_forms(fmt_, table, accept):
+        """Kernel D's table forms to hold against the plain version: both
+        where the narrow table fits the shared form's cap, else the global
+        one (and the shared form refused)."""
+        S_, W_ = table.shape
+        if S_ * (2 * W_ + 1) <= fused.DFA_SHARED_MAX:
+            return ("shared", "global")
+        try:
+            fused.dfa_match(fmt_, *dev8[:5], table.to(dev), accept.to(dev), 0,
+                            rem8_d, form="shared")
+        except ValueError as exc:
+            require("over the shared form" in str(exc), str(exc))
+            return ("global",)
+        raise SystemExit("chip_smoke FAILED: kernel D took a table over the "
+                         "shared form's cap in the shared form")
+
     for fmt9 in (AddressFormat.P2PKH, AddressFormat.P2WPKH):
+        # a.{8}$: 514 states, over the shared form's cap at both widths
         for src in ("c[a4]t", "a.{8}$"):
             table, accept, start = dfa_tensors(Pattern(src), fmt9)
-            for kname, mult in (("dfa_match", 1),
-                                ("glv_dfa_match", fused.GLV_KEYS)):
+            forms = d_forms(fmt9, table, accept)
+            require(src != "a.{8}$" or forms == ("global",),
+                    f"{src} {fmt9.value} fits the shared form's cap")
+            cases9 = [("dfa_match", 1, form) for form in forms]
+            cases9.append(("glv_dfa_match", fused.GLV_KEYS, None))
+            plain9 = {}  # each kernel's plain output, once for its forms
+            for kname, mult, form in cases9:
                 kern = wrappers[kname]
+                kw = {} if form is None else {"form": form}
                 t0 = time.time()
-                m_c = kern(fmt9, *cpu8, table, accept, start, rem8)
+                if kname not in plain9:
+                    plain9[kname] = kern(fmt9, *cpu8, table, accept, start,
+                                         rem8)
+                m_c = plain9[kname]
                 plain_s = time.time() - t0
                 m_d = kern(fmt9, *dev8, table.to(dev), accept.to(dev), start,
-                           rem8_d)
+                           rem8_d, **kw)
                 r_d = fused.pack_tail(m_d, rem8_d, mult)
                 torch.cuda.synchronize()
+                what = f"{kname} {fmt9.value} {src}" + (f" ({form})"
+                                                       if form else "")
                 err = max_abs_err(m_d.cpu(), m_c)
                 err_de[kname] = max(err_de[kname], err)
-                require(err == 0, f"{kname} {fmt9.value} {src}: differs ({err})")
+                require(err == 0, f"{what}: differs ({err})")
                 require(torch.equal(r_d.cpu(), fused.pack_tail(m_c, rem8, mult)),
-                        f"{kname} {fmt9.value} {src}: packed rows differ")
+                        f"{what}: packed rows differ")
                 hits = int((m_c > 0).sum())
-                require(hits > 0, f"{kname} {fmt9.value} {src}: no match")
-                log(f"[9] {kname} {fmt9.value} {src!r} ({table.shape[0]} "
-                    f"states) == plain on K={K} B={B}: {hits} matching lanes "
-                    f"(plain on CPU {plain_s:.1f} s)")
+                require(hits > 0, f"{what}: no match")
+                log(f"[9] {what} ({table.shape[0]} states) == plain on K={K} "
+                    f"B={B}: {hits} matching lanes (plain on CPU "
+                    f"{plain_s:.1f} s)")
 
     # -- 10. random DFA path at full width ---------------------------------
     for argv, fmt10, src in (
@@ -662,59 +728,183 @@ def main():
     require(rows[0]["operations"] == ref13.operations == end13 - start13 + 1,
             f"DFA range: operations {rows[0]['operations']}, native "
             f"{ref13.operations}")
+    form13 = fused.dfa_form(*Pattern(src13).device_dfa(fmt).table.shape)
     require(got["batch_inverse_dx"] > 0 and got["dfa_match"] > 0
+            and got[f"dfa_match[{form13}]"] == got["dfa_match"]
             and got["range_match"] == 0 and got["glv_dfa_match"] == 0,
-            f"DFA range: launches {got}, expected kernels A and D only")
+            f"DFA range: launches {got}, expected kernels A and D ({form13} "
+            "form) only")
     log(f"[13] range {start13:x}:{end13:x} -p {src13} -c 0: {len(keys13)} "
         f"matches in {secs:.1f} s == native scanner's ({native_s:.1f} s); "
         f"launches {got}")
+    # a table over the shared budget: kernel D's global form, -c 1
+    src13g = "a.{8}$"
+    reset_launches()
+    rows, _, secs = run_cli(["range", "-r", f"{start13:x}:{end13:x}", "-p",
+                             src13g, "-c", "1"])
+    got = path_launches["range dfa global"] = read_launches()
+    ref13g = _scan_cpu(Pattern(src13g), ScanConfig(
+        format=fmt, start=start13, end=end13, count=1, use_device=False),
+        None, None)
+    want13g = [int(m.hex, 16) for m in ref13g.matches]
+    require(confirm(rows, fmt, Pattern(src13g)) == want13g and want13g,
+            f"{src13g} -c 1: {rows}, native {want13g}")
+    require(got["dfa_match[global]"] > 0 and got["dfa_match[shared]"] == 0,
+            f"{src13g} range: launches {got}, expected kernel D's global form")
+    log(f"[13] range -p {src13g} -c 1 ({Pattern(src13g).device_dfa(fmt).table.shape[0]}"
+        f" states, over the shared budget): {hex(want13g[0])}, the native "
+        f"scanner's lowest, in {secs:.1f} s; launches {got}")
+    # P2WPKH's range paths: a DFA range against the native scanner (kernels
+    # A and D) and an interval range -c 1 (A and C)
+    W2 = AddressFormat.P2WPKH
+    reset_launches()
+    rows, _, secs = run_cli(["range", "-f", W2.value, "-r",
+                             f"{start13:x}:{end13:x}", "-p", src13, "-c", "0"])
+    got = path_launches["range dfa p2wpkh"] = read_launches()
+    keys13 = sorted(confirm(rows, W2, Pattern(src13)))
+    ref13w = _scan_cpu(Pattern(src13), ScanConfig(
+        format=W2, start=start13, end=end13, count=0, use_device=False),
+        None, None)
+    want13w = sorted(int(m.hex, 16) for m in ref13w.matches)
+    require(keys13 == want13w and len(keys13) > 2 * pipeline.TOP_K,
+            f"P2WPKH DFA range: {len(keys13)} matches, native {len(want13w)}")
+    require(got["dfa_match"] > 0 and got["range_match"] == 0
+            and got["glv_dfa_match"] == 0,
+            f"P2WPKH DFA range: launches {got}, expected A and D")
+    log(f"[13] range -f p2wpkh -p {src13} -c 0: {len(keys13)} matches in "
+        f"{secs:.1f} s == native scanner's; launches {got}")
+    reset_launches()
+    rows, _, secs = run_cli(["range", "-f", W2.value, "-r",
+                             f"{start13:x}:{end13:x}", "-p", "^bc1qq", "-c",
+                             "1"])
+    got = path_launches["range interval p2wpkh"] = read_launches()
+    ref13w = _scan_cpu(Pattern("^bc1qq"), ScanConfig(
+        format=W2, start=start13, end=end13, count=1, use_device=False),
+        None, None)
+    want13w = [int(m.hex, 16) for m in ref13w.matches]
+    require(confirm(rows, W2, Pattern("^bc1qq")) == want13w and want13w,
+            f"P2WPKH ^bc1qq -c 1: {rows}, native {want13w}")
+    require(got["range_match"] > 0 and got["dfa_match"] == 0,
+            f"P2WPKH interval range: launches {got}, expected A and C")
+    log(f"[13] range -f p2wpkh -p ^bc1qq -c 1: {hex(want13w[0])}, the native "
+        f"scanner's lowest, in {secs:.1f} s; launches {got}")
 
     # -- 14. kernels C, D, E vs plain at the main shape --------------------
     # patterns that hit often, so that a wrong parity or hash shows: kernel
-    # C takes the ^1C intervals of phase 6 (one key per lane)
+    # C takes the ^1C intervals of phase 6 (one key per lane), P2WPKH's
+    # ^bc1qq; D takes [Cc]at, in the form the product takes for it and, for
+    # P2PKH, in the global one
     K, B = sc.DEFAULT_K_SUB, sc.DEFAULT_DEVICE_BATCH
     shape = f"K={K} B={B}"
-    tab_d, acc_d, st_d = (t.to(dev) if torch.is_tensor(t) else t
-                          for t in dfa_tensors(Pattern(src13), fmt))
-    tab_e, acc_e, st_e = (t.to(dev) if torch.is_tensor(t) else t
-                          for t in dfa_tensors(Pattern("Cat$"), fmt))
+
+    def on_dev(args):
+        return tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+
+    def d_bytes(table, form):
+        """Kernel D's table bytes, read once: the narrow form's, or the
+        int32 table and accept flags."""
+        S_, W_ = table.shape
+        return S_ * (2 * W_ + 1) if form == "shared" else 4 * S_ * (W_ + 1)
+
+    W2 = AddressFormat.P2WPKH
+    dfa_d = on_dev(dfa_tensors(Pattern(src13), fmt))
+    dfa_w = on_dev(dfa_tensors(Pattern(src13), W2))
+    tab_e, acc_e, st_e = on_dev(dfa_tensors(Pattern("Cat$"), fmt))
+    lo_w, hi_w = (t.to(dev) for t in lo_hi(Pattern("^bc1qq"), W2))
+    form_w = fused.dfa_form(*dfa_w[0].shape)
+    # the narrow tables, once per pattern, as the scanner builds them
+    nar_d, nar_w = (fused.narrow_dfa(*d[:2]) for d in (dfa_d, dfa_w))
     lanes_f = (bxf, byf, txf, tyf, inv_f)
-    # Base58Check of a P2PKH address: the checksum's two compressions, 49
-    # 64-bit divisions by 58^5 (8 each), 35 digit splits (5) and the
-    # 35-step walk
+    # Base58Check of a P2PKH address: kernel E's symbols (the checksum's two
+    # compressions, 49 64-bit divisions by 58^5, 35 digit splits) and
+    # 35-step walk; kernel D's register form of them (B58_WALK); bech32's
+    # 38 groups and polymod steps and D's 40-step walk
     b58_walk = B58_SYMBOLS + 35 * DFA_STEP
-    finish_xy = 2 * FE_MUL + FE_SQR + 6 * FE_ADD
-    for kname, run, plain, replaces, path, err_small, ops, nbytes in (
-        ("range_match",
+    bech32_walk = BECH32 + 40 * DFA_STEP
+    finish_xy = FINISH_XY
+    rows14 = {}
+    for kname, f, run, plain, replaces, path, err_small, ops, nbytes in (
+        ("range_match", fmt,
          lambda: fused.range_match(fmt, *lanes_f, lof, hif, remf),
          lambda: fused.range_match_plain(fmt, *lanes_f, lof, hif, remf),
-         "vgen_tpu/ops/pallas_fused.py:1243", "range interval", err_c,
-         N * (finish_xy + HASH160 + compare(S, 5)), lane_in + 40 * S + 4 * N),
-        ("dfa_match",
-         lambda: fused.dfa_match(fmt, *lanes_f, tab_d, acc_d, st_d, remf),
-         lambda: fused.dfa_match_plain(fmt, *lanes_f, tab_d, acc_d, st_d, remf),
-         "vgen_tpu/ops/pallas_fused.py:165", "range dfa", err_de["dfa_match"],
-         N * (finish_xy + HASH160 + b58_walk),
-         lane_in + 4 * (tab_d.numel() + acc_d.numel()) + 4 * N),
-        ("glv_dfa_match",
+         "vgen_tpu/ops/pallas_fused.py:1243", ("range interval",
+                                                "range_match"),
+         err_c[fmt], N * (finish_xy + HASH160 + compare(S, 5)),
+         lane_in + 40 * S + 4 * N),
+        ("dfa_match", fmt,
+         lambda: fused.dfa_match(fmt, *lanes_f, *dfa_d, remf, narrow=nar_d),
+         lambda: fused.dfa_match_plain(fmt, *lanes_f, *dfa_d, remf),
+         "vgen_tpu/ops/pallas_fused.py:165", ("range dfa", "dfa_match"),
+         err_de["dfa_match"], N * (finish_xy + HASH160 + B58_WALK),
+         lane_in + d_bytes(dfa_d[0], form13) + 4 * N),
+        ("dfa_match[global]", fmt,
+         lambda: fused.dfa_match(fmt, *lanes_f, *dfa_d, remf, form="global"),
+         lambda: fused.dfa_match_plain(fmt, *lanes_f, *dfa_d, remf),
+         "vgen_tpu/ops/pallas_fused.py:165",
+         ("range dfa global", "dfa_match[global]"), err_de["dfa_match"],
+         N * (finish_xy + HASH160 + B58_WALK),
+         lane_in + d_bytes(dfa_d[0], "global") + 4 * N),
+        ("range_match[p2wpkh]", W2,
+         lambda: fused.range_match(W2, *lanes_f, lo_w, hi_w, remf),
+         lambda: fused.range_match_plain(W2, *lanes_f, lo_w, hi_w, remf),
+         "vgen_tpu/ops/pallas_fused.py:1243",
+         ("range interval p2wpkh", "range_match"), err_c[W2],
+         N * (finish_xy + HASH160 + compare(lo_w.shape[0], 5)),
+         lane_in + 40 * lo_w.shape[0] + 4 * N),
+        ("dfa_match[p2wpkh]", W2,
+         lambda: fused.dfa_match(W2, *lanes_f, *dfa_w, remf, narrow=nar_w),
+         lambda: fused.dfa_match_plain(W2, *lanes_f, *dfa_w, remf),
+         "vgen_tpu/ops/pallas_fused.py:165", ("range dfa p2wpkh",
+                                               "dfa_match"),
+         err_de["dfa_match"], N * (finish_xy + HASH160 + bech32_walk),
+         lane_in + d_bytes(dfa_w[0], form_w) + 4 * N),
+        ("glv_dfa_match", fmt,
          lambda: fused.glv_dfa_match(fmt, *lanes_f, tab_e, acc_e, st_e, remf),
          lambda: fused.glv_dfa_match_plain(fmt, *lanes_f, tab_e, acc_e, st_e,
                                            remf),
-         "vgen_tpu/ops/pallas_fused.py:190", "random dfa p2pkh",
+         "vgen_tpu/ops/pallas_fused.py:190", ("random dfa p2pkh",
+                                               "glv_dfa_match"),
          err_de["glv_dfa_match"],
          N * (finish_x_glv + 6 * (HASH160 + b58_walk)),
          lane_in + 4 * (tab_e.numel() + acc_e.numel()) + 4 * N),
     ):
-        ref = run()
+        ref = rows14[kname] = run()
         hits = int((ref > 0).sum())
         require(hits > 0, f"{kname} at {shape}: no matching lane")
         ms, plain_ms, bms, bby = time_kernel(
-            kname, run, plain, ref, replaces, path_launches[path][kname],
+            kname, run, plain, ref, replaces, path_launches[path[0]][path[1]],
             err_small, shape, ops, nbytes)
         log(f"[14] {kname} at {shape}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({bby}), bit-equal, "
             f"{hits} matching lanes ({smi})")
-        del ref
+    require(torch.equal(rows14["dfa_match"], rows14["dfa_match[global]"]),
+            "kernel D's two table forms differ")
+    # C and D on the per-lane grid (one thread per lane over N / 256 blocks, D's
+    # symbols in a per-thread array, the int32 table through the read-only
+    # cache; the probe unit keeps them), timed once beside the product's
+    from vgen_tpu_torch.probes import profile_dfa as pdfa
+
+    bech32_arrays = BECH32 + 40 * DFA_STEP  # the per-lane grid's symbols and walk
+    for old, kname, f, margs, ops in (
+            ("c_lane", "range_match", fmt, (lof, hif) + dfa_d,
+             N * (finish_xy + HASH160 + compare(S, 5))),
+            ("d_lane", "dfa_match", fmt, (lof, hif) + dfa_d,
+             N * (finish_xy + HASH160 + b58_walk)),
+            ("c_lane", "range_match[p2wpkh]", W2, (lo_w, hi_w) + dfa_w,
+             N * (finish_xy + HASH160 + compare(lo_w.shape[0], 5))),
+            ("d_lane", "dfa_match[p2wpkh]", W2, (lo_w, hi_w) + dfa_w,
+             N * (finish_xy + HASH160 + bech32_arrays))):
+        row = next(k for k in kernels if k["name"] == kname)
+        old_ms, old_bms = time_old(
+            kname, "the per-lane grid",
+            lambda o=old, f=f, m=margs: pdfa.probe_single_key(
+                o, *lanes_f, *m, remf, fmt=f), rows14[kname], ops,
+            lane_in + 4 * N + (40 * margs[0].shape[0] if old == "c_lane"
+                               else d_bytes(margs[2], "global")), 10)
+        log(f"[14] {kname} on the per-lane grid ({old}): {old_ms:.3f} ms, bound "
+            f"{old_bms:.3f} ms; the tile loop {row['ms']:.3f} ms "
+            f"({row['ms'] / old_ms:.3f} of it), bit-equal ({smi})")
+    del rows14
 
     # -- 15. timed DFA scan -------------------------------------------------
     reset_launches()
@@ -1029,11 +1219,13 @@ def main():
                       AddressFormat.P2PKH_UNCOMPRESSED, AddressFormat.ETHEREUM)
     new_formats = {
         # format: (interval patterns, DFA patterns); a.{8}$ has more than 256
-        # DFA states
+        # DFA states, over kernel D's shared-form cap at width 60 (not at
+        # Ethereum's 24, where a.{10}$, for D alone, is)
         P2SH: (("^3A",), ("c[a4]t", "a.{8}$")),
         UNC: (("^1A",), ("c[a4]t", "a.{8}$")),
         ETH: (("^0x1", "^0xab"), ("Ab$", "a.{8}$")),
     }
+    over_cap = {P2SH: "a.{8}$", UNC: "a.{8}$", ETH: "a.{10}$"}
     K, B = 2, 8192
     bases22 = [1 + B // 2, 0x5EED5EED5EED]  # window 0: doubling lane at B/2
     bx22, by22 = base_points(bases22)
@@ -1044,25 +1236,38 @@ def main():
     rem22_d = rem22.to(dev)
     err22 = {}
 
-    def on_dev(args):
-        return tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
-
     for fmt22, (iv_srcs, dfa_srcs) in new_formats.items():
-        ivs = [(s_, lo_hi(Pattern(s_), fmt22)) for s_ in iv_srcs]
-        dfas = [(s_, dfa_tensors(Pattern(s_), fmt22)) for s_ in dfa_srcs]
+        ivs = [(s_, lo_hi(Pattern(s_), fmt22), None) for s_ in iv_srcs]
+        dfas = [(s_, dfa_tensors(Pattern(s_), fmt22), None)
+                for s_ in dfa_srcs]
+        # kernel D in each table form the table takes
+        d_cases = []
+        for s_ in dfa_srcs + ((over_cap[fmt22],) if over_cap[fmt22]
+                              not in dfa_srcs else ()):
+            margs = dfa_tensors(Pattern(s_), fmt22)
+            forms = d_forms(fmt22, margs[0], margs[1])
+            require(s_ != over_cap[fmt22] or forms == ("global",),
+                    f"{s_} {fmt22.value} fits the shared form's cap")
+            d_cases += [(s_, margs, form)
+                        for form in forms]
+        plain22 = {}  # each kernel's plain output, once for its forms
         for kname, mult, cases in (("range_match", 1, ivs),
                                    ("range_glv_match", fused.GLV_KEYS, ivs),
-                                   ("dfa_match", 1, dfas),
+                                   ("dfa_match", 1, d_cases),
                                    ("glv_dfa_match", fused.GLV_KEYS, dfas)):
             kern = wrappers[kname]
-            for src, margs in cases:
+            for src, margs, form in cases:
+                kw = {} if form is None else {"form": form}
                 t0 = time.time()
-                m_c = kern(fmt22, *cpu22, *margs, rem22)
+                if (kname, src) not in plain22:
+                    plain22[kname, src] = kern(fmt22, *cpu22, *margs, rem22)
+                m_c = plain22[kname, src]
                 plain_s = time.time() - t0
-                m_d = kern(fmt22, *dev22, *on_dev(margs), rem22_d)
+                m_d = kern(fmt22, *dev22, *on_dev(margs), rem22_d, **kw)
                 r_d = fused.pack_tail(m_d, rem22_d, mult)
                 torch.cuda.synchronize()
-                what = f"{kname} {fmt22.value} {src}"
+                what = f"{kname} {fmt22.value} {src}" + (
+                    f" ({form})" if form else "")
                 err = max_abs_err(m_d.cpu(), m_c)
                 err22[kname, fmt22] = max(err22.get((kname, fmt22), 0), err)
                 require(err == 0, f"{what}: differs from its plain version "
@@ -1179,10 +1384,12 @@ def main():
         dfa_d = on_dev(dfa_tensors(Pattern(d_src), fmt25))
         dfa_e = on_dev(dfa_tensors(Pattern(e_src), fmt25))
         value, glv_value = value_ops[fmt25], glv_value_ops[fmt25]
-        walk = eip55_walk if fmt25 == ETH else b58_walk
+        walk = eip55_walk if fmt25 == ETH else b58_walk  # kernel E's
+        d_walk = eip55_walk if fmt25 == ETH else B58_WALK  # kernel D's
         glv_finish = (finish_xy_glv if fmt25 in pipeline.GLV_EXACT_Y
                       else finish_x_glv)
-        dfa_bytes = [4 * (d[0].numel() + d[1].numel()) for d in (dfa_d, dfa_e)]
+        dfa_bytes = [d_bytes(dfa_d[0], fused.dfa_form(*dfa_d[0].shape)),
+                     4 * (dfa_e[0].numel() + dfa_e[1].numel())]
         iv_args, f = (lo25, hi25, remf), fmt25
         for kname, margs, path, replaces, ops, nbytes in (
             ("range_glv_match", iv_args, f"random interval {f.value}",
@@ -1195,7 +1402,7 @@ def main():
              lane_in + 40 * S25 + 4 * N),
             ("dfa_match", dfa_d + (remf,), f"range dfa {f.value}",
              "vgen_tpu/ops/pallas_fused.py:165",
-             N * (finish_xy + value + walk), lane_in + dfa_bytes[0] + 4 * N),
+             N * (finish_xy + value + d_walk), lane_in + dfa_bytes[0] + 4 * N),
             ("glv_dfa_match", dfa_e + (remf,), f"random dfa {f.value}",
              "vgen_tpu/ops/pallas_fused.py:190",
              N * (glv_finish + glv_value + 6 * walk),
@@ -1203,9 +1410,12 @@ def main():
         ):
             kern = wrappers[kname]
             plain_fn = getattr(fused, f"{kname}_plain")
+            # kernel D's narrow table, once, as the scanner builds it
+            kw = ({"narrow": fused.narrow_dfa(*dfa_d[:2])}
+                  if kname == "dfa_match" else {})
 
-            def run(kern=kern, margs=margs):
-                return kern(f, *lanes_f, *margs)
+            def run(kern=kern, margs=margs, kw=kw):
+                return kern(f, *lanes_f, *margs, **kw)
 
             def plain(plain_fn=plain_fn, margs=margs):
                 return plain_fn(f, *lanes_f, *margs)
@@ -1220,6 +1430,19 @@ def main():
             log(f"[25] {iname} at {shape}: kernel {ms:.3f} ms, plain "
                 f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({bby}), bit-equal, "
                 f"{hits} matching lanes ({smi})")
+            if kname in ("range_match", "dfa_match"):
+                # the per-lane grid; its D walks kernel E's symbol arrays
+                old = "c_lane" if kname == "range_match" else "d_lane"
+                old_ops = ops if old == "c_lane" else N * (
+                    finish_xy + value + walk)
+                old_ms, _ = time_old(
+                    iname, "the per-lane grid",
+                    lambda o=old: pdfa.probe_single_key(
+                        o, *lanes_f, lo25, hi25, *dfa_d, remf, fmt=f), ref,
+                    old_ops, nbytes, 5)
+                log(f"[25] {iname} on the per-lane grid ({old}): {old_ms:.3f} ms; "
+                    f"the tiles {ms:.3f} ms ({ms / old_ms:.3f} of it), "
+                    f"bit-equal ({smi})")
             del ref
         torch.cuda.empty_cache()
 
@@ -1342,7 +1565,7 @@ def main():
     t0 = time.time()
     probe_log = build.build_log(("probes",))
     for kname in ("probe_glv_stage", "probe_vtile", "probe_rows",
-                  "probe_layout"):
+                  "probe_layout", "probe_single_key"):
         figs = ptiming.ptxas_figures(probe_log, kname)
         log(f"[28] ptxas {kname}: " + "; ".join(
             f"{args} {ptiming.ptxas_text(f)}" for args, f in sorted(
@@ -1366,6 +1589,17 @@ def main():
     for lay in playout.LAYOUTS:  # each layout's operands, laid out once
         inputs28[lay] = tuple(tuple(playout.to_layout(t, lay) for t in ab)
                               for ab in (lay_small, lay_timed))
+    # probe_single_key: two windows of n28 lanes (the second partial) with
+    # a DFA that hits often, then the tool's K = 8 windows of 524288 lanes
+    sk_lo, sk_hi = pdfa.intervals("cpu")
+    inputs28["single"] = (
+        pdfa.window_inputs([0x5EED5EED, 0xC0FFEE0123], [n28, n28 - 100], n28,
+                           "cpu")[:5]
+        + (sk_lo, sk_hi) + pdfa.pattern_dfa("[a-k]$")
+        + (torch.tensor([n28, n28 - 100], dtype=torch.int32),),
+        pdfa.inputs(dev)[:5] + (sk_lo.to(dev), sk_hi.to(dev))
+        + pdfa.pattern_dfa(pdfa.DFA_PATTERN, device=dev)
+        + (torch.full((pdfa.K,), pdfa.B, dtype=torch.int32, device=dev),))
     kernel_b = {kind: fused.range_glv_match(AddressFormat.P2PKH,
                                             *inputs28[kind][1])
                 for kind in ("stage", "vtile")}
@@ -1419,6 +1653,21 @@ def main():
          playout.BYTES_PER_LANE * playout.LANES,
          "scripts/microbench_layout.py:75", False)
         for lay in playout.LAYOUTS]
+    sk_tab = inputs28["single"][1][7]
+    # the timed table's narrow form, built once, as the scanner builds it
+    sk_nar = fused.narrow_dfa(*inputs28["single"][1][7:9])
+    sk_bytes = {m: pdfa.stage_nbytes(m, sk_lo.shape[0], d_bytes(
+        sk_tab, "global" if m == "d_lane" else "shared"))
+        for m in pdfa.MODES}
+    probes28 += [
+        (f"probe_single_key[{m}]", pdfa.probe_single_key, "single",
+         lambda args, m=m: pdfa.probe_single_key(
+             m, *args, narrow=sk_nar if args[7] is sk_tab else None),
+         lambda args, m=m: pdfa.single_key_plain(m, *args),
+         pdfa.K * pdfa.B * pdfa.stage_count(m, sk_lo.shape[0]), sk_bytes[m],
+         "vgen_tpu/ops/pallas_fused.py:"
+         + ("1243" if m in pdfa.C_MODES else "165"), False)
+        for m in pdfa.MODES]
     err28 = {}
     small_plain = {}  # the vtile instances share one plain output
     for rname, _, kind, run, plain, _, _, _, is_b in probes28:
@@ -1431,7 +1680,7 @@ def main():
             if key not in small_plain:
                 small_plain[key] = plain(small)
             want = small_plain[key]
-            got = run(tuple(t.to(dev) for t in small))
+            got = run(on_dev(small))
         torch.cuda.synchronize()
         err28[rname] = max_abs_err(got.cpu(), want)
         require(err28[rname] == 0, f"{rname} differs from its plain version "
@@ -1477,6 +1726,41 @@ def main():
         log(f"[28] {rname}: {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
             f"{bms:.4f} ms ({bby}, share {bms / ms:.2f}), bit-equal ({smi})")
     log(f"[28] timed {len(probes28)} instances in {time.time() - t0:.1f} s")
+
+    # -- 29. the range DFA rate per format ------------------------------------
+    # whole windows of a never-matching suffix through kernels A and D (in
+    # the form its table takes), after one warm-up super-step
+    steps29 = 64
+    K, B = sc.DEFAULT_K_SUB, sc.DEFAULT_DEVICE_BATCH
+    for fmt29, src in ((AddressFormat.P2PKH, "BenchNeverMatches$"),
+                       (AddressFormat.P2WPKH, "q" * 16 + "$"),
+                       (P2SH, "BenchNeverMatches$"),
+                       (UNC, "BenchNeverMatches$"),
+                       (ETH, "deadbeefcafe0123$")):
+        pat29 = Pattern(src)
+        start29 = 0x5EED00000000
+        scanner = sc.DeviceScanner(fmt29)
+        scanner.scan(pat29, ScanConfig(format=fmt29, start=start29,
+                                       end=start29 + K * B - 1, count=0))
+        end29 = start29 + steps29 * K * B - 1
+        reset_launches()
+        res = scanner.scan(pat29, ScanConfig(format=fmt29, start=start29,
+                                             end=end29, count=0))
+        got = read_launches()
+        require(not res.matches and res.operations == end29 - start29 + 1,
+                f"{fmt29.value} {src}: {len(res.matches)} matches, "
+                f"{res.operations} operations")
+        form29 = fused.dfa_form(*pat29.device_dfa(fmt29).table.shape)
+        require(got["batch_inverse_dx"] > 0 and got[f"dfa_match[{form29}]"] > 0
+                and got["range_match"] == 0 and got["glv_dfa_match"] == 0,
+                f"{fmt29.value} range DFA rate: launches {got}")
+        log(f"[29] range DFA rate {fmt29.value} {src}: "
+            f"{res.operations / res.elapsed_secs:,.0f} range keys/s "
+            f"({res.operations:,} keys in {res.elapsed_secs:.3f} s, "
+            f"{res.elapsed_secs / steps29 * 1e3:.3f} ms per super-step of "
+            f"{K * B:,} keys; launches {got}) on {smi}")
+        del scanner
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

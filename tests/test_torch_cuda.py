@@ -417,3 +417,102 @@ def test_inversion_geometry_equals_plain(dev, geometry):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
     assert torch.equal(got_g.cpu(), fused.batch_inverse_chain_plain(v))
+
+
+# Kernels C and D over the persistent tile loop: D in both table forms for
+# every hash format, a table over the shared budget, C on windows that are
+# empty, partial and full, and the single-key probe's modes.
+SINGLE_KEY_DFA = {AddressFormat.P2PKH: "[a-k]$", AddressFormat.P2WPKH: "q$",
+                  AddressFormat.P2SH_P2WPKH: "c|[a-k]$",
+                  AddressFormat.P2PKH_UNCOMPRESSED: "(?i)^1[a-c]",
+                  AddressFormat.ETHEREUM: "[A-F]$"}
+
+
+def _single_key_inputs(dev, rem=(B, B - 9)):
+    """(cpu, gpu) lane inputs (bx, by, tx, ty, inv, remaining), inv from
+    kernel A on the card."""
+    bx, by, tx, ty, _ = _step_inputs()
+    bx, by = (torch.cat([t] * (len(rem) // 2 + 1))[:len(rem)] for t in (bx, by))
+    remaining = torch.tensor(rem, dtype=torch.int32)
+    inv = fused.batch_inverse_dx(bx.to(dev), tx.to(dev)).cpu()
+    cpu = (bx, by, tx, ty, inv, remaining)
+    return cpu, tuple(t.to(dev) for t in cpu)
+
+
+@pytest.mark.parametrize("form", fused.DFA_FORMS)
+@pytest.mark.parametrize("fmt", list(fused.FMT_CODE), ids=lambda f: f.value)
+def test_dfa_kernel_d_both_forms_equal_plain(dev, fmt, form):
+    dfa = Pattern(SINGLE_KEY_DFA[fmt]).device_dfa(fmt)
+    table = torch.from_numpy(dfa.table.astype(np.int32))
+    accept = torch.from_numpy(dfa.accept.astype(np.int32))
+    cpu, gpu = _single_key_inputs(dev)
+    before = dict(fused.dfa_match.forms)
+    got = fused.dfa_match(fmt, *gpu[:5], table.to(dev), accept.to(dev),
+                          dfa.start, gpu[5], form=form)
+    torch.cuda.synchronize()
+    assert fused.dfa_match.forms[form] == before[form] + 1
+    want = fused.dfa_match_plain(fmt, *cpu[:5], table, accept, dfa.start,
+                                 cpu[5])
+    assert torch.equal(got.cpu(), want)
+    assert int(want.sum()) > 0
+
+
+def test_dfa_kernel_d_over_the_budget_takes_the_global_form(dev):
+    fmt = AddressFormat.P2PKH
+    dfa = Pattern("a.{8}$").device_dfa(fmt)
+    table = torch.from_numpy(dfa.table.astype(np.int32))
+    accept = torch.from_numpy(dfa.accept.astype(np.int32))
+    assert fused.dfa_form(*table.shape) == "global"
+    cpu, gpu = _single_key_inputs(dev)
+    before = fused.dfa_match.forms["global"]
+    got = fused.dfa_match(fmt, *gpu[:5], table.to(dev), accept.to(dev),
+                          dfa.start, gpu[5])
+    torch.cuda.synchronize()
+    assert fused.dfa_match.forms["global"] == before + 1
+    assert torch.equal(got.cpu(), fused.dfa_match_plain(
+        fmt, *cpu[:5], table, accept, dfa.start, cpu[5]))
+    with pytest.raises(ValueError, match="over the shared form"):
+        fused.dfa_match(fmt, *gpu[:5], table.to(dev), accept.to(dev),
+                        dfa.start, gpu[5], form="shared")
+
+
+@pytest.mark.parametrize("fmt", list(fused.FMT_CODE), ids=lambda f: f.value)
+def test_range_kernel_c_on_empty_partial_and_full_windows(dev, fmt):
+    src = {AddressFormat.P2PKH: "^1[A-H]", AddressFormat.P2WPKH: "^bc1q[q-z]",
+           AddressFormat.P2SH_P2WPKH: "^3[A-H]",
+           AddressFormat.P2PKH_UNCOMPRESSED: "^1[A-H]",
+           AddressFormat.ETHEREUM: "^0x[0-3]"}[fmt]
+    ivs = Pattern(src).prefilter_intervals(fmt)[0]
+    lo, hi = (u256.as_i32(a) for a in pipeline.intervals_to_words(
+        ivs, n_slots=pipeline.interval_slot_count(len(ivs))))
+    cpu, gpu = _single_key_inputs(dev, rem=(0, 300, B, 1000))
+    got = fused.range_match(fmt, *gpu[:5], lo.to(dev), hi.to(dev), gpu[5])
+    want = fused.range_match_plain(fmt, *cpu[:5], lo, hi, cpu[5])
+    assert torch.equal(got.cpu(), want)
+    assert int(want[0].sum()) == 0 and int(want.sum()) > 0
+
+
+def test_single_key_probe_modes_equal_plain(dev):
+    from vgen_tpu_torch.probes import profile_dfa as pd
+
+    cpu, gpu = _single_key_inputs(dev)
+    lo, hi = pd.intervals("cpu")
+    dfa = pd.pattern_dfa(pd.DFA_PATTERN)
+    margs = (lo, hi) + dfa
+    for mode in pd.MODES:
+        before = pd.probe_single_key.launches
+        got = pd.probe_single_key(mode, *gpu[:5], *(
+            a.to(dev) if torch.is_tensor(a) else a for a in margs), gpu[5])
+        torch.cuda.synchronize()
+        assert pd.probe_single_key.launches == before + 1
+        want = pd.single_key_plain(mode, *cpu[:5], *margs, cpu[5])
+        assert torch.equal(got.cpu(), want), mode
+    # the modes that take any hash format, for every one
+    for fmt, (iv_src, dfa_src) in pd.TURN_PATTERNS.items():
+        m_f = pd.intervals("cpu", fmt, iv_src) + pd.pattern_dfa(dfa_src, fmt)
+        for mode in pd.ANY_FORMAT:
+            got = pd.probe_single_key(mode, *gpu[:5], *(
+                a.to(dev) if torch.is_tensor(a) else a for a in m_f), gpu[5],
+                fmt=fmt)
+            want = pd.single_key_plain(mode, *cpu[:5], *m_f, cpu[5], fmt=fmt)
+            assert torch.equal(got.cpu(), want), (mode, fmt)

@@ -108,8 +108,8 @@ def _reference(name, a, b):
                          for i in range(20)])
         return np.asarray(jencode.eth_symbols(jnp.asarray(acct))[0]).astype(
             np.int64)
-    if name.startswith("dfachar"):
-        width = int(name[len("dfachar"):])
+    if name in roofline.DFA_PRIMITIVES:
+        width = roofline.DFA_PRIMITIVES[name]
         flat = jnp.asarray(roofline.dfa_table().numpy().reshape(-1))
         idx = (jnp.asarray(bn[0]) % 64) * width + jnp.asarray(an[0]) % width
         return np.asarray(jnp.take(flat, idx.astype(jnp.int32)))[None]

@@ -14,7 +14,8 @@ steps, curve stage included, are held row for row against
 ``packed_xla_scan_step(fmt, kind, glv, 16, 2, False)`` jitted on XLA:CPU,
 whose first call compiles for 15-40 s per step at B = 256: so one
 format per route, kernel C on P2PKH and D on P2WPKH here, E on P2PKH in
-``tests/test_torch_glv_dfa_step.py``."""
+``tests/test_torch_glv_dfa_step.py``.  Kernel D's mask is also held on a
+DFA of 130 states for both formats."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +124,31 @@ def test_dfa_match_vs_make_format_mask(fmt, glv, port_inputs, oracle_points):
         for k, base in enumerate(BASES):
             assert np.nonzero(mask[k].numpy())[0].tolist() == \
                 _oracle_keys_matching(fmt, pat, base, REMAINING[k])
+
+
+@fmt_ids
+def test_dfa_match_many_states_vs_make_format_mask(fmt, port_inputs,
+                                                   oracle_points):
+    """Kernel D on a DFA of 130 states (a.{6}$, within the 256 that the
+    JAX package's one-hot walk keeps exact), P2PKH and P2WPKH, against the
+    reference mask and the oracle's addresses."""
+    src = "a.{6}$"
+    dfa = Pattern(src).device_dfa(fmt)
+    assert 64 < dfa.table.shape[0] <= 256
+    mask = fused.dfa_match(fmt, *port_inputs[:5], torch.from_numpy(dfa.table),
+                           torch.from_numpy(dfa.accept.astype(np.int32)),
+                           dfa.start, port_inputs[5])
+    flat, accept = jpipeline.pad_device_dfa(dfa)
+    ref = jpipeline.make_format_mask(_j(fmt), unroll=True, glv=False)
+    for k, (x3, y3) in enumerate(oracle_points):
+        m, _ = ref(x3, y3, jnp.ones(B, dtype=bool), jnp.asarray(flat),
+                   jnp.asarray(accept), jnp.int32(dfa.start),
+                   jnp.int32(REMAINING[k]))
+        np.testing.assert_array_equal(mask[k].numpy(), np.asarray(m))
+    pat = Pattern(src)
+    for k, base in enumerate(BASES):
+        assert np.nonzero(mask[k].numpy())[0].tolist() == \
+            _oracle_keys_matching(fmt, pat, base, REMAINING[k])
 
 
 def _ref_rows(tail, oracle_points, margs):

@@ -147,7 +147,8 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 "vgen_range_glv_match": [i, p, p, p, p, p, p, p, i, p, p, i, i,
                                          p],
                 "vgen_range_match": [i, p, p, p, p, p, p, p, i, p, p, i, i, p],
-                "vgen_dfa_match": [p, p, p, p, p, p, p, i, i, i, p, p, i, i, p],
+                "vgen_dfa_match": [i, p, p, p, p, p, p, p, i, i, i, i, p, p,
+                                   i, i, p],
                 "vgen_glv_dfa_match": [p, p, p, p, p, p, p, i, i, i, p, p, i,
                                        i, p],
             },
@@ -171,6 +172,9 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 "vgen_probe_rows": [i, i, p, p, i, i, i, p],
                 "vgen_probe_rows_blocks_per_sm": [i, i, i],
                 "vgen_probe_layout": [i, p, p, p, i, i, p],
+                "vgen_probe_single_key": [i, i, i, p, p, p, p, p, p, p, i, p, p,
+                                          i, i, i, p, p, i, i, p],
+                "vgen_probe_dfa_blocks_per_sm": [i, i],
             },
         }
         for u in group:

@@ -112,6 +112,64 @@ VG_FN int base58check_symbols(uint8_t syms[kBase58Syms], uint32_t version,
   return kBase58Syms - shift;
 }
 
+// 58^j for j < 5 (a constant where j is one, as in an unrolled loop)
+VG_FN uint32_t b58_pow(int j) {
+  return j == 0 ? 1u : j == 1 ? 58u : j == 2 ? 3364u : j == 3 ? 195112u
+                                                              : 11316496u;
+}
+
+// The register form of base58check_symbols, for kernel D's walk
+// (dfa.cuh base58check_walk): the payload's seven base-58^5 limbs r[7],
+// least significant first (digit 5i + j of the 35 is digit j of r[i]),
+// and the returned shift k - z: k leading zero digits of the 34, z
+// leading zero bytes of the payload.  Symbol j of base58check_symbols is
+// digit 33 - shift - j, and the length is 34 - shift.  The 7 rounds of
+// division by 58^5 are base58check_symbols'; k comes from 34 compares of
+// the limbs against powers of 58 (digit j of r[i] and every digit above
+// it are 0 exactly when r[i] < 58^j, given the limbs above are 0).
+VG_FN int base58check_limbs(uint32_t r[7], uint32_t version,
+                            const uint32_t h[5]) {
+  uint32_t n[7];
+  n[0] = version;
+#pragma unroll
+  for (int i = 0; i < 5; i++) n[1 + i] = h[i];
+  n[6] = base58check_checksum(version, h);
+  int z = 0;
+  bool run = n[0] == 0u;
+  z += run;
+#pragma unroll
+  for (int i = 1; i < 7; i++) {
+#pragma unroll
+    for (int sh = 24; sh >= 0; sh -= 8) {
+      run = run && ((n[i] >> sh) & 0xFFu) == 0u;
+      z += run;
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < 7; l++) {
+    unsigned long long rem = 0;
+#pragma unroll
+    for (int i = 0; i < 7; i++) {
+      const unsigned long long cur = (rem << 32) | n[i];
+      const unsigned long long q = cur / kB58Pow5;
+      n[i] = (uint32_t)q;
+      rem = cur - q * kB58Pow5;
+    }
+    r[l] = (uint32_t)rem;
+  }
+  int k = 0;
+  run = true;
+#pragma unroll
+  for (int l = 6; l >= 0; l--) {
+#pragma unroll
+    for (int j = l == 6 ? 3 : 4; j >= 0; j--) {
+      run = run && r[l] < b58_pow(j);
+      k += run;
+    }
+  }
+  return k - z;
+}
+
 // EIP-55 symbols of an Ethereum account h[5] (big-endian words) after
 // "0x": nibble i (most significant first) is 0-9 -> 0..9, a-f -> 10..15,
 // and A-F -> 16..21 where nibble i of the checksum hash is 8 or more.  The
@@ -145,6 +203,37 @@ VG_FN void eip55_symbols(uint8_t syms[kEthSyms], const uint32_t h[5]) {
     const uint32_t upper = (byte >> (i % 2 == 0 ? 7 : 3)) & 1u;
     if (syms[i] >= 10 && upper) syms[i] += 6;
   }
+}
+
+// The checksum hash of eip55_symbols without the symbols (kernel D's
+// walk, dfa.cuh eip55_walk): a = keccak256 of h's 40 lowercase-hex ASCII
+// bytes, laid out as eip55_symbols lays them out.
+VG_FN void eip55_hash(uint64_t a[25], const uint32_t h[5]) {
+#pragma unroll
+  for (int w = 0; w < 5; w++) {
+    uint64_t lane = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      const uint32_t nib = (h[w] >> (28 - 4 * j)) & 0xFu;
+      lane |= (uint64_t)(nib + (nib >= 10u ? 87u : 48u)) << (8 * j);
+    }
+    a[w] = lane;
+  }
+  a[5] = 0x01ull;
+#pragma unroll
+  for (int i = 6; i < 25; i++) a[i] = 0ull;
+  a[16] = 0x8000000000000000ull;
+  keccak_f1600(a);
+}
+
+// EIP-55 symbol i of account h from its checksum hash a (eip55_hash):
+// nibble i, a letter moved to 16..21 where the hash's nibble i is 8 or more
+VG_FN int eip55_symbol(const uint64_t a[25], const uint32_t h[5], int i) {
+  const uint32_t nib = (h[i / 8] >> (28 - 4 * (i % 8))) & 0xFu;
+  const int d = i / 2;
+  const uint32_t byte = (uint32_t)(a[d / 8] >> (8 * (d % 8))) & 0xFFu;
+  const uint32_t upper = (byte >> (i % 2 == 0 ? 7 : 3)) & 1u;
+  return (int)nib + (nib >= 10u && upper ? 6 : 0);
 }
 
 VG_CONSTANT uint32_t BECH32_GEN[5] = {0x3B6A57B2u, 0x26508E6Du, 0x1EA119FAu,

@@ -61,9 +61,15 @@
 //   Bound: integer ALU, one value and three field multiplies per key (a
 //   sixth of kernel B's hashing per lane), 96 bytes read and 4 written per
 //   lane.
-//   Design: kernel B's lane with the y of the full finish in place of the
-//   GLV loop; y is exact (every field op returns a value < p), so its
-//   parity is the prefix byte's.
+//   Design: tiles of 256 lanes of one window (match_kernels.cuh
+//   range_tile_kernel), one per block over a (tiles per window, K) grid:
+//   k is the block's, so no lane divides by B, and a tile at or past
+//   remaining[k] loads nothing.  A persistent loop over the tiles (as many
+//   blocks as the SMs hold), with and without a cp.async prefetch of the
+//   next lane's 96 bytes, ran 14% slower (NVIDIA H100 80GB HBM3, 700 W;
+//   probes/profile_dfa.py) and is kept in the probe unit.  y is exact
+//   (every field op returns a value < p), so its parity is the prefix
+//   byte's.  The interval table stays in shared memory.
 //
 // Kernel D, dfa_match
 //   Replaces _make_kernel (glv=False) as called through fused_match_fn.
@@ -75,13 +81,19 @@
 //   T + 1 steps -> 0/1.
 //   Bound: integer ALU (for P2PKH three SHA-256 compressions, one
 //   RIPEMD-160 and 49 64-bit divisions by a constant) and T + 1 dependent
-//   loads from the DFA table, which the read-only cache serves (a table of
-//   S states is S * W * 4 bytes).
-//   Design: the TPU walked the DFA as a one-hot (S, W) f32 matmul per
-//   symbol, exact only up to 256 states; here each thread follows the
-//   table by index (__ldg), so any state count works.  Symbols sit in a
-//   per-thread array (34, 39 or 40 bytes, local memory where the shift
-//   indexes it at run time).  Format is a template parameter.
+//   table loads.
+//   Design: C's tiles.  The TPU walked the DFA as a one-hot (S, W) f32
+//   matmul per symbol, exact only up to 256 states; here each thread
+//   follows the table by index, so any state count works.  A table of up
+//   to 16 KB in the narrow form (uint16 entries, uint8 accept flags, built
+//   once per pattern by the scanner) is copied into shared memory per
+//   block; any other is read as int32 through the read-only cache, a
+//   second instance (fused.py dfa_form).  No symbol array: the seven
+//   base-58^5 remainders of Base58Check stay in registers and the walk
+//   splits them into digits as it steps, the leading-zero shift a
+//   predicate (dfa.cuh base58check_walk); bech32 walks its groups as the
+//   checksum takes them, EIP-55 its nibbles as it cases them (dfa.cuh
+//   address_walk).  Format is a template parameter.
 //
 // Kernel E, glv_dfa_match
 //   Replaces _make_glv_dfa_kernel (glv=True) as called through
@@ -91,8 +103,10 @@
 //   layout).
 //   Bound: six times kernel D's hashing, encoding and walk per lane, for
 //   six keys.
-//   Design: D's body shared through dfa.cuh; the variant loops are not
-//   unrolled, to bound the code size of the six inlined encoders.
+//   Design: the symbols of base58check_symbols, bech32_p2wpkh_symbols or
+//   eip55_symbols in a per-thread array and dfa_walk over the int32 table
+//   (dfa.cuh address_matches), one thread per lane; the variant loops are
+//   not unrolled, to bound the code size of the six inlined encoders.
 
 #include "inv_block.cuh"
 #include "match_kernels.cuh"
@@ -154,23 +168,28 @@ int vgen_range_match(int fmt, const void* bx, const void* by, const void* tx,
                      const void* ty, const void* inv, const void* lo,
                      const void* hi, int n_slots, const void* remaining,
                      void* out, int K, int B, void* stream) {
-  return vg::launch_interval<false, VG_HASH_FORMATS>(
+  return vg::launch_range_tiles<VG_HASH_FORMATS>(
       fmt, bx, by, tx, ty, inv, lo, hi, n_slots, remaining, out, K, B, stream);
 }
 
-// Kernels D (dfa_match) and E (glv_dfa_match), fmt as for B and C.  bx, by
-// (K, 8); tx, ty (8, B); inv (8, K*B); table (S, width) and accept (S,)
-// int32; remaining (K,) -> out (K, B): 0/1 (D) or the 6-bit mask (E).
-int vgen_dfa_match(const void* bx, const void* by, const void* tx,
-                   const void* ty, const void* inv, const void* table,
-                   const void* accept, int width, int start, int fmt,
-                   const void* remaining, void* out, int K, int B,
-                   void* stream) {
-  return vg::launch_dfa<false, VG_HASH_FORMATS>(
-      fmt, bx, by, tx, ty, inv, table, accept, width, start, remaining, out, K,
-      B, stream);
+// Kernel D (dfa_match), fmt as for B and C.  shared = 1: table (n_states,
+// width) uint16 and accept (n_states,) uint8, at most 32 KB together
+// (vg::kDfaSharedMax), copied into shared memory; shared = 0: both
+// int32, read through the read-only cache.  Other arguments as for E ->
+// out (K, B) 0/1.
+int vgen_dfa_match(int shared, const void* bx, const void* by,
+                   const void* tx, const void* ty, const void* inv,
+                   const void* table, const void* accept, int n_states,
+                   int width, int start, int fmt, const void* remaining,
+                   void* out, int K, int B, void* stream) {
+  return vg::launch_dfa_tiles<VG_HASH_FORMATS>(
+      fmt, shared, bx, by, tx, ty, inv, table, accept, n_states, width, start,
+      remaining, out, K, B, stream);
 }
 
+// Kernel E (glv_dfa_match), fmt as for B and C.  bx, by (K, 8); tx, ty
+// (8, B); inv (8, K*B); table (S, width) and accept (S,) int32; remaining
+// (K,) -> out (K, B): the 6-bit mask.
 int vgen_glv_dfa_match(const void* bx, const void* by, const void* tx,
                        const void* ty, const void* inv, const void* table,
                        const void* accept, int width, int start, int fmt,

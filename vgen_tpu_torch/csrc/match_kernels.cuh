@@ -3,15 +3,37 @@
 // formats).  Each launcher takes the caller's stream, launches without
 // synchronising, and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for a format not in its list.
+//
+// B and E run one thread per lane over a grid of N / 256 blocks
+// (interval_kernel, dfa_kernel with kGlv); their kGlv = false instances
+// are kernels C and D on the per-lane grid, which the probe unit keeps for
+// comparison.  The product's C and D take tiles of 256 lanes of one
+// window, one tile per block (range_tile_kernel and the two table forms
+// of D, dfa_tile_kernel<kFmt, kShared>).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "scan_lanes.cuh"
 
 namespace vg {
 
 constexpr int kMatchThreads = 256;
+
+// Kernel C's interval table (at most 8 slots of 5 words) into the block's
+// shared memory s_lo, s_hi.
+__device__ __forceinline__ void stage_intervals(uint32_t* s_lo, uint32_t* s_hi,
+                                                const uint32_t* lo,
+                                                const uint32_t* hi,
+                                                int n_slots) {
+  for (int i = threadIdx.x; i < n_slots * 5; i += blockDim.x) {
+    s_lo[i] = lo[i];
+    s_hi[i] = hi[i];
+  }
+  __syncthreads();
+}
 
 // Kernels B (kGlv) and C: the interval table (at most 8 slots) is staged in
 // shared memory.
@@ -57,6 +79,143 @@ __global__ void __launch_bounds__(kMatchThreads)
   } else {
     out[e] = dfa_lane<kFmt>(bx, by, tx, ty, inv, dfa, remaining, B, N, e);
   }
+}
+
+// The largest narrow table (S * width uint16 entries and S uint8 accept
+// flags) that kernel D's shared form copies into shared memory: under the
+// 48 KB a block takes without opting in.  Which form the product takes
+// for a table is the wrapper's choice (vgen_tpu_torch/ops/fused.py
+// dfa_form).
+constexpr int kDfaSharedMax = 32768;
+
+// run(dfa) with kernel D's table as its lanes read it.  kShared: the
+// narrow form (uint16 table, uint8 accept; width even), which the block
+// copies into s_table (n_states * width * 2 + n_states bytes of shared
+// memory) -> a DfaPlain over the copy; else the int32 table and accept
+// read through the read-only cache (Dfa).
+template <bool kShared, class Run>
+__device__ __forceinline__ void with_dfa_table(const void* table,
+                                               const void* accept,
+                                               int n_states, int width,
+                                               int start, uint32_t* s_table,
+                                               const Run& run) {
+  if constexpr (kShared) {
+    const int words = n_states * width / 2;
+    const uint32_t* g_words = (const uint32_t*)table;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) s_table[i] = g_words[i];
+    uint8_t* s_accept = (uint8_t*)(s_table + words);
+    for (int i = threadIdx.x; i < n_states; i += blockDim.x)
+      s_accept[i] = ((const uint8_t*)accept)[i];
+    __syncthreads();
+    run(DfaPlain<uint16_t, uint8_t>{(const uint16_t*)s_table, s_accept, width,
+                                    start});
+  } else {
+    run(Dfa{(const int32_t*)table, (const int32_t*)accept, width, start});
+  }
+}
+
+// Kernel C: one tile of 256 lanes of window blockIdx.y per block.
+template <int kFmt>
+__global__ void __launch_bounds__(kTileLanes)
+    range_tile_kernel(const uint32_t* __restrict__ bx,
+                      const uint32_t* __restrict__ by,
+                      const uint32_t* __restrict__ tx,
+                      const uint32_t* __restrict__ ty,
+                      const uint32_t* __restrict__ inv,
+                      const uint32_t* __restrict__ lo,
+                      const uint32_t* __restrict__ hi, int n_slots,
+                      const int32_t* __restrict__ remaining,
+                      int32_t* __restrict__ out, int K, int B) {
+  __shared__ uint32_t s_lo[8 * 5], s_hi[8 * 5];
+  stage_intervals(s_lo, s_hi, lo, hi, n_slots);
+  const SingleKeyLane<kFmt, IntervalHit> lane{bx, by, {s_lo, s_hi, n_slots}};
+  single_key_tile(lane, tx, ty, inv, remaining, out, K, B, blockIdx.y,
+                  blockIdx.x, threadIdx.x);
+}
+
+// Kernel D, C's tiles: the address walked in registers (dfa.cuh
+// address_walk) over the table in form kShared (with_dfa_table).
+template <int kFmt, bool kShared>
+__global__ void __launch_bounds__(kTileLanes)
+    dfa_tile_kernel(const uint32_t* __restrict__ bx,
+                    const uint32_t* __restrict__ by,
+                    const uint32_t* __restrict__ tx,
+                    const uint32_t* __restrict__ ty,
+                    const uint32_t* __restrict__ inv,
+                    const void* __restrict__ table,
+                    const void* __restrict__ accept, int n_states, int width,
+                    int start, const int32_t* __restrict__ remaining,
+                    int32_t* __restrict__ out, int K, int B) {
+  extern __shared__ __align__(16) uint32_t s_table[];
+  with_dfa_table<kShared>(
+      table, accept, n_states, width, start, s_table, [&](const auto& dfa) {
+        using D = std::decay_t<decltype(dfa)>;
+        const SingleKeyLane<kFmt, WalkHit<kFmt, D>> lane{bx, by, {dfa}};
+        single_key_tile(lane, tx, ty, inv, remaining, out, K, B, blockIdx.y,
+                        blockIdx.x, threadIdx.x);
+      });
+}
+
+// The tile kernels' grid: (tiles per window, K).
+inline dim3 tile_grid(int K, int B) {
+  return dim3((unsigned)((B + kTileLanes - 1) / kTileLanes), (unsigned)K);
+}
+
+// f(std::integral_constant<int, fmt>) for the first of kFmts that equals
+// fmt, or cudaErrorInvalidValue
+template <int kFmt, int... kRest, class F>
+int for_format(int fmt, F&& f) {
+  if (fmt == kFmt) return f(std::integral_constant<int, kFmt>{});
+  if constexpr (sizeof...(kRest) > 0) {
+    return for_format<kRest...>(fmt, f);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Launch kernel C for fmt: same arguments as launch_interval.
+template <int... kFmts>
+int launch_range_tiles(int fmt, const void* bx, const void* by,
+                       const void* tx, const void* ty, const void* inv,
+                       const void* lo, const void* hi, int n_slots,
+                       const void* remaining, void* out, int K, int B,
+                       void* stream) {
+  return for_format<kFmts...>(fmt, [&](auto f) {
+    if ((long)K * B == 0) return 0;
+    range_tile_kernel<decltype(f)::value>
+        <<<tile_grid(K, B), kTileLanes, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
+            (const uint32_t*)ty, (const uint32_t*)inv, (const uint32_t*)lo,
+            (const uint32_t*)hi, n_slots, (const int32_t*)remaining,
+            (int32_t*)out, K, B);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Launch kernel D for fmt.  shared: table (n_states, width) uint16 and
+// accept (n_states,) uint8, at most kDfaSharedMax bytes together, width
+// even; else both int32.
+template <int... kFmts>
+int launch_dfa_tiles(int fmt, int shared, const void* bx, const void* by,
+                     const void* tx, const void* ty, const void* inv,
+                     const void* table, const void* accept, int n_states,
+                     int width, int start, const void* remaining, void* out,
+                     int K, int B, void* stream) {
+  const long table_bytes = (long)n_states * width * 2 + n_states;
+  if (shared && (width % 2 || table_bytes > kDfaSharedMax))
+    return (int)cudaErrorInvalidValue;
+  return for_format<kFmts...>(fmt, [&](auto f) {
+    constexpr int kFmt = decltype(f)::value;
+    if ((long)K * B == 0) return 0;
+    const auto kernel = shared ? dfa_tile_kernel<kFmt, true>
+                               : dfa_tile_kernel<kFmt, false>;
+    kernel<<<tile_grid(K, B), kTileLanes, shared ? (int)table_bytes : 0,
+             (cudaStream_t)stream>>>(
+        (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
+        (const uint32_t*)ty, (const uint32_t*)inv, table, accept, n_states,
+        width, start, (const int32_t*)remaining, (int32_t*)out, K, B);
+    return (int)cudaGetLastError();
+  });
 }
 
 inline unsigned match_blocks(long N) {

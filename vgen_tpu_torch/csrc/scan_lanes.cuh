@@ -312,4 +312,107 @@ VG_FN int32_t glv_dfa_lane(const uint32_t* bx, const uint32_t* by,
                                });
 }
 
+// -- Kernels C and D: one key per lane, in tiles of one window --------------
+
+constexpr int kTileLanes = 256;  // a tile: lanes b0 .. b0 + 255 of one window
+
+// Where a lane's rows are read: tx, ty and inv as three columns, tx and
+// ty of stride ``stride``, inv of ``inv_stride`` (device memory: B and
+// K * B from the lane's own column; the probe unit's prefetch stage
+// buffer: kTileLanes).
+struct LaneRows {
+  const uint32_t* tx;
+  const uint32_t* ty;
+  const uint32_t* inv;
+  long stride, inv_stride;
+};
+
+// lane_add<true> from a lane's rows: the affine add of window k's base
+// point (bxk, byk) and the lane's table point -> x, y canonical; false
+// where dx == 0.  Each row is read where it is first needed, as lane_add
+// reads them.
+VG_FN bool affine_add_xy(uint32_t x[8], uint32_t y[8], const uint32_t bxk[8],
+                         const uint32_t byk[8], const LaneRows& rows) {
+  uint32_t t[8], lam[8], u[8];
+  fe_load(t, rows.tx, rows.stride, 0);
+  fe_sub(lam, t, bxk);
+  if (fe_is_zero(lam)) return false;
+  fe_load(lam, rows.ty, rows.stride, 0);
+  fe_sub(lam, lam, byk);
+  fe_load(u, rows.inv, rows.inv_stride, 0);
+  fe_mul(lam, lam, u);
+  fe_sqr(x, lam);
+  fe_sub(x, x, bxk);
+  fe_sub(x, x, t);
+  fe_sub(u, bxk, x);
+  fe_mul(u, lam, u);
+  fe_sub(y, u, byk);
+  return true;
+}
+
+// Kernel C's hit: the value in an interval (the slots in shared memory)
+struct IntervalHit {
+  const uint32_t* lo;
+  const uint32_t* hi;
+  int n_slots;
+  VG_FN bool operator()(const uint32_t h[5]) const {
+    return in_intervals(h, lo, hi, n_slots);
+  }
+};
+
+// Kernel D's hit: the address of format kFmt walked in registers
+// (dfa.cuh address_walk)
+template <int kFmt, class D>
+struct WalkHit {
+  D dfa;
+  VG_FN bool operator()(const uint32_t h[5]) const {
+    return address_walk<kFmt>(dfa, h);
+  }
+};
+
+// Kernels C and D, lane (k, b) from its rows: the full affine add, the
+// value of format kFmt (the compressed prefix is 2 + (y & 1)), 1 where
+// hit(value) holds, else 0; 0 where dx == 0.  rows_read() runs once the
+// rows are read (the probe unit's prefetch may then reuse their buffer).
+template <int kFmt, class Hit>
+struct SingleKeyLane {
+  const uint32_t* bx;
+  const uint32_t* by;
+  Hit hit;
+  template <class Then>
+  VG_FN int32_t operator()(int k, const LaneRows& rows,
+                           const Then& rows_read) const {
+    uint32_t bxk[8], byk[8], x[8], y[8], h[5];
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+      bxk[i] = bx[k * 8 + i];
+      byk[i] = by[k * 8 + i];
+    }
+    const bool ok = affine_add_xy(x, y, bxk, byk, rows);
+    rows_read();
+    if (!ok) return 0;
+    value_words<kFmt>(h, x, y, y[0] & 1u);
+    return hit(h) ? 1 : 0;
+  }
+};
+
+// One tile per block: lane b = i * kTileLanes + t of window k gets
+// lane(k, rows) from device memory where b < min(remaining[k], B), 0
+// where b < B; no loop.
+template <class Lane>
+VG_FN void single_key_tile(const Lane& lane, const uint32_t* tx,
+                           const uint32_t* ty, const uint32_t* inv,
+                           const int32_t* remaining, int32_t* out, int K,
+                           int B, int k, int i, int t) {
+  const int b = i * kTileLanes + t;
+  if (b >= B) return;
+  int32_t r = 0;
+  if (b < remaining[k]) {
+    const LaneRows rows{tx + b, ty + b, inv + (long)k * B + b, B,
+                        (long)K * B};
+    r = lane(k, rows, [] {});
+  }
+  out[(long)k * B + b] = r;
+}
+
 }  // namespace vg

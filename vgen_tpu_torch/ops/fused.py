@@ -338,8 +338,49 @@ def glv_dfa_match_plain(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept,
     return torch.where(valid, mask, 0).to(torch.int32)
 
 
-def _launch_dfa(entry: str, fmt, args):
-    """Check the DFA kernels' inputs and launch kernel D or E."""
+# Kernel D's table forms (csrc/match_kernels.cuh): "shared", the narrow
+# table (uint16 entries, uint8 accept flags) copied into each block's
+# shared memory, for a table of at most DFA_SHARED_MAX bytes; "global", the
+# int32 table through the read-only cache, for any.  The product takes the
+# shared form up to DFA_SHARED_BUDGET bytes, at every width: it read 1.8-5%
+# faster than the global form on [Cc]at for the Base58Check formats and
+# P2WPKH, a tie for Ethereum, up to 0.7% faster at 128 states (15.5 KB)
+# and 1% slower at 270 (32 KB) (``python -m
+# vgen_tpu_torch.probes.profile_dfa``, two runs, NVIDIA H100 80GB HBM3,
+# 700 W; PERF.md)
+DFA_SHARED_MAX = 32768
+DFA_SHARED_BUDGET = 16384
+DFA_FORMS = ("shared", "global")
+NARROW_MAX_STATES = 1 << 16
+
+
+def _narrow_bytes(n_states: int, width: int) -> int:
+    return n_states * width * 2 + n_states
+
+
+def dfa_form(n_states: int, width: int) -> str:
+    """The table form kernel D takes for an (n_states, width) DFA: shared
+    where its narrow form fits DFA_SHARED_BUDGET bytes, else global."""
+    fits = _narrow_bytes(n_states, width) <= DFA_SHARED_BUDGET
+    return "shared" if fits and n_states <= NARROW_MAX_STATES else "global"
+
+
+def narrow_dfa(dfa_table: torch.Tensor, dfa_accept: torch.Tensor):
+    """The narrow form of a DFA: (S, W) int32 table -> (S, W) int16 holding
+    the uint16 state numbers, (S,) accept -> (S,) uint8 0/1, on the table's
+    device.  More than 65,536 states raises ValueError."""
+    S = dfa_table.shape[0]
+    if S > NARROW_MAX_STATES:
+        raise ValueError(f"narrow_dfa: {S} states, the narrow form holds at "
+                         f"most {NARROW_MAX_STATES}")
+    # int16 holds each uint16 state number's bits (two's complement)
+    v = dfa_table.to(torch.int32) & 0xFFFF
+    table = torch.where(v >= 1 << 15, v - (1 << 16), v).to(torch.int16)
+    return table, (dfa_accept != 0).to(torch.uint8).contiguous()
+
+
+def _check_dfa_inputs(entry: str, fmt, args):
+    """Check kernel D's or E's inputs -> (format code, device)."""
     code = _match_code(entry, fmt)
     bx, by, tx, ty, inv, dfa_table, dfa_accept, start, remaining = args
     K, B = bx.shape[0], tx.shape[1]
@@ -355,9 +396,17 @@ def _launch_dfa(entry: str, fmt, args):
         ("dfa_table", dfa_table, (S, W)), ("dfa_accept", dfa_accept, (S,)),
         ("remaining", remaining, (K,)),
     ])
+    return code, dev
+
+
+def _launch_glv_dfa(fmt, args):
+    """Check kernel E's inputs and launch it."""
+    code, dev = _check_dfa_inputs("glv_dfa_match", fmt, args)
+    bx, by, tx, ty, inv, dfa_table, dfa_accept, start, remaining = args
+    K, B, W = bx.shape[0], tx.shape[1], dfa_table.shape[1]
     out = torch.empty((K, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _launch("kernels", entry, bx.data_ptr(), by.data_ptr(),
+        _launch("kernels", "glv_dfa_match", bx.data_ptr(), by.data_ptr(),
                 tx.data_ptr(), ty.data_ptr(), inv.data_ptr(),
                 dfa_table.data_ptr(), dfa_accept.data_ptr(), W, int(start),
                 code, remaining.data_ptr(), out.data_ptr(), K, B,
@@ -365,20 +414,66 @@ def _launch_dfa(entry: str, fmt, args):
     return out
 
 
+def _launch_dfa_match(fmt, args, narrow, form):
+    """Check kernel D's inputs, choose its table form and launch it ->
+    ((K, B) int32, the form)."""
+    code, dev = _check_dfa_inputs("dfa_match", fmt, args)
+    bx, by, tx, ty, inv, dfa_table, dfa_accept, start, remaining = args
+    K, B = bx.shape[0], tx.shape[1]
+    S, W = dfa_table.shape
+    if form is None:
+        form = dfa_form(S, W)
+    elif form not in DFA_FORMS:
+        raise ValueError(f"dfa_match: table form {form!r}, expected one of "
+                         f"{DFA_FORMS}")
+    elif form == "shared" and _narrow_bytes(S, W) > DFA_SHARED_MAX:
+        raise ValueError(f"dfa_match: a ({S}, {W}) table is over the shared "
+                         f"form's {DFA_SHARED_MAX} bytes")
+    if form == "shared":
+        table, accept = narrow if narrow is not None else narrow_dfa(
+            dfa_table, dfa_accept)
+        for arg, t, dtype, shape in (("narrow table", table, torch.int16,
+                                      (S, W)),
+                                     ("narrow accept", accept, torch.uint8,
+                                      (S,))):
+            if (t.device != dev or t.dtype != dtype
+                    or tuple(t.shape) != shape or not t.is_contiguous()
+                    or t.data_ptr() % 4):
+                raise ValueError(f"dfa_match: {arg} must be a contiguous, "
+                                 f"4-byte aligned {shape} {dtype} tensor on "
+                                 f"{dev}")
+    else:
+        table, accept = dfa_table, dfa_accept
+    out = torch.empty((K, B), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("kernels", "dfa_match", int(form == "shared"), bx.data_ptr(),
+                by.data_ptr(), tx.data_ptr(), ty.data_ptr(), inv.data_ptr(),
+                table.data_ptr(), accept.data_ptr(), S, W, int(start), code,
+                remaining.data_ptr(), out.data_ptr(), K, B, _stream(dev))
+    return out, form
+
+
 def dfa_match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
-              remaining):
-    """Kernel D (``csrc/kernels.cu``): same contract
-    as ``dfa_match_plain``, one launch for all K*B lanes."""
+              remaining, narrow=None, form=None):
+    """Kernel D (``csrc/kernels.cu``): same contract as ``dfa_match_plain``,
+    one launch for all K*B lanes.  The table form is ``dfa_form``'s
+    unless ``form`` names one ("shared" raises for a table over
+    DFA_SHARED_MAX bytes); the shared form reads ``narrow`` (``narrow_dfa`` of the
+    table, which the scanner builds once per pattern) or builds it.
+    ``dfa_match.launches`` counts launches, ``dfa_match.forms`` those of
+    each form."""
     args = (bx, by, tx, ty, inv, dfa_table, dfa_accept, start, remaining)
     tensors = args[:7] + args[8:]
     if _all_cpu(*tensors):
         return dfa_match_plain(fmt, *args)
-    out = _launch_dfa("dfa_match", fmt, args)
+    out, used = _launch_dfa_match(fmt, args, narrow, form)
     dfa_match.launches += 1
+    dfa_match.forms[used] += 1
     return out
 
 
 dfa_match.launches = 0
+dfa_match.forms = dict.fromkeys(DFA_FORMS, 0)
 
 
 def glv_dfa_match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
@@ -389,7 +484,7 @@ def glv_dfa_match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
     tensors = args[:7] + args[8:]
     if _all_cpu(*tensors):
         return glv_dfa_match_plain(fmt, *args)
-    out = _launch_dfa("glv_dfa_match", fmt, args)
+    out = _launch_glv_dfa(fmt, args)
     glv_dfa_match.launches += 1
     return out
 
@@ -445,15 +540,17 @@ def _range_mask(fmt, bx, by, tx, ty, lo, hi, remaining, glv, wt):
 
 
 def _dfa_mask(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start, remaining,
-              glv, wt):
+              glv, wt, narrow=None):
     check_format(fmt)
     if fmt == AddressFormat.P2TR:
         return fused_p2tr_scan_mask_step(bx, by, tx, ty, dfa_table,
                                          dfa_accept, start, remaining, wt)
     inv = batch_inverse_dx(bx, tx)
-    match = glv_dfa_match if glv else dfa_match
-    return match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
-                 remaining)
+    if glv:
+        return glv_dfa_match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept,
+                             start, remaining)
+    return dfa_match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept, start,
+                     remaining, narrow=narrow)
 
 
 def fused_range_scan_step(fmt, bx, by, tx, ty, lo, hi, remaining,
@@ -476,23 +573,24 @@ def fused_range_mask_step(fmt, bx, by, tx, ty, lo, hi, remaining,
 
 
 def fused_scan_step(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start,
-                    remaining, glv: bool = True, wt=None):
+                    remaining, glv: bool = True, wt=None, narrow=None):
     """One super-step of the DFA scan: bx, by (K, 8); tx, ty (8, B);
     dfa_table (S, W), dfa_accept (S,) int32; start int; remaining (K,) ->
     (K, 34) int32 packed rows.  glv: kernel E and six keys per position
-    (random scans), else kernel D and one (range scans).  P2TR takes the
-    window table wt and runs kernels A, F, G, I, one key per position
-    (``fused_p2tr_scan_step``)."""
+    (random scans), else kernel D and one (range scans; ``narrow`` is the
+    table's ``narrow_dfa``, or None to build it where kernel D takes the
+    shared form).  P2TR takes the window table wt and runs kernels A, F, G,
+    I, one key per position (``fused_p2tr_scan_step``)."""
     mask = _dfa_mask(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start,
-                     remaining, glv, wt)
+                     remaining, glv, wt, narrow)
     return pack_tail(mask, remaining, _keys_per_position(fmt, glv))
 
 
 def fused_scan_mask_step(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start,
-                         remaining, glv: bool = True, wt=None):
+                         remaining, glv: bool = True, wt=None, narrow=None):
     """Full-mask variant of ``fused_scan_step`` for overflow recovery."""
     return _dfa_mask(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start,
-                     remaining, glv, wt)
+                     remaining, glv, wt, narrow)
 
 
 # ---------------------------------------------------------------------------

@@ -56,7 +56,11 @@ The counts, per lane:
   theta results a column shares; the last round computes only the
   output's halves and the five lanes that chi reads for them;
 - inversion: 255 squarings and 15 multiplies;
-- a DFA step: the index's multiply-add and the load;
+- a DFA step: the index's multiply-add and the load, from the read-only
+  cache or from shared memory;
+- kernel D's Base58Check walk (``B58_WALK``): the checksum, the 49
+  divisions, 34 compares for the leading-zero count, 34 digit splits and
+  the 35 steps;
 - an interval compare of W words against S slots: a subtract with borrow
   per word against lo and against hi, and one combine, per slot;
 - the column form of the multiply: the 8x8 product's halves into 16
@@ -197,6 +201,12 @@ B58_SYMBOLS = B58_CHECKSUM + ops(0, 0, 49 * 8 + 35 * 5)
 # the casing (3 each)
 EIP55_SYMBOLS = KECCAK_EIP55 + ops(0, 0, 40 * (4 + 3))
 DFA_STEP = ops(1, 0, 2)
+# kernel D's register form of Base58Check (csrc/dfa.cuh base58check_walk):
+# the checksum, the 49 divisions and 34 compares of the leading-zero count
+# (base58check_limbs), 34 digit splits as the walk takes them (5 each) and
+# 35 steps (34 - shift symbols, the end of the string, shift paddings)
+B58_LIMBS = ops(0, 0, 49 * 8 + 34)
+B58_WALK = B58_CHECKSUM + B58_LIMBS + ops(0, 0, 34 * 5) + 35 * DFA_STEP
 # the TapTweak tagged hash: one compression of x from the tag's midstate
 TAGGED = sha256_ops(range(8, 16))
 # one lean Jacobian add (8M + 3S): six subtractions and 2V as an addition
@@ -207,6 +217,12 @@ LEAN_ADD = 8 * FE_MUL + 3 * FE_SQR + 7 * FE_ADD
 # XORs ALU-only; the human-readable part and the witness version fold to
 # constants)
 BECH32M = ops(0, 58 * 6, 58 * (2 + 12))
+# bech32 of a P2WPKH key as BECH32M counts it: 38 groups (the program's 32,
+# the checksum's 6) and 38 polymod steps
+BECH32 = ops(0, 38 * 6, 38 * (2 + 12))
+# the full affine finish of kernels C and D: lambda = (ty - by) inv, x =
+# lambda^2 - bx - tx, y = lambda (bx - x) - by
+FINISH_XY = 2 * FE_MUL + FE_SQR + 6 * FE_ADD
 
 
 def compare(slots, words) -> np.ndarray:

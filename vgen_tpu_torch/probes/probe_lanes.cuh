@@ -43,7 +43,7 @@ namespace probe {
 enum Primitive {
   kEmpty, kFeMul, kFeSqr, kFeSqrDedicated, kHash160c, kScriptHash, kHash160u,
   kKeccak, kTagged, kLeanAdd, kDfaChar24, kDfaChar60, kB58Symbols, kEthSymbols,
-  kNumPrimitives
+  kDfaChar60Shared, kNumPrimitives
 };
 // probe_issue instances (microbench_vpu.py OPS)
 enum IssueOp {
@@ -58,6 +58,7 @@ enum FieldMulMode {
 };
 
 constexpr int kDfaStates = 64;  // the probe's DFA table is (64, W) int32
+constexpr int kDfaWidth = 60;   // its row length
 
 // a[j mod 8] ^= out[j mod n] for j < max(8, n); b ^= a; both below p
 template <int n>
@@ -70,8 +71,10 @@ VG_FN void feedback(uint32_t a[8], uint32_t b[8], const uint32_t out[n]) {
   fe_normalize(b);
 }
 
-template <int kPrim>
-VG_FN void primitive_rep(uint32_t a[8], uint32_t b[8], const int32_t* table) {
+// table: the (64, 60) DFA table as int32, or, for dfachar60s, as the
+// kernel stages it (uint16 in shared memory; any integer type on the host)
+template <int kPrim, class T>
+VG_FN void primitive_rep(uint32_t a[8], uint32_t b[8], const T* table) {
   if constexpr (kPrim == kEmpty) {
     // the fold alone; b[0] + 1, since a fold of b[0] itself would be the
     // xor-swap pair a ^= b, b ^= a, which repeats every three repetitions
@@ -117,6 +120,12 @@ VG_FN void primitive_rep(uint32_t a[8], uint32_t b[8], const int32_t* table) {
     const uint32_t out[1] = {(uint32_t)dfa_step(
         dfa, (int)(b[0] % kDfaStates), (int)(a[0] % W))};
     feedback<1>(a, b, out);
+  } else if constexpr (kPrim == kDfaChar60Shared) {
+    // dfachar60's step through kernel D's plain-load form (DfaPlain)
+    const DfaPlain<T, T> dfa{table, nullptr, kDfaWidth, 0};
+    const uint32_t out[1] = {(uint32_t)dfa_step(
+        dfa, (int)(b[0] % kDfaStates), (int)(a[0] % kDfaWidth))};
+    feedback<1>(a, b, out);
   } else if constexpr (kPrim == kB58Symbols) {
     // Base58Check (version 0) of the value a[0..4]: 34 symbols, length
     uint8_t syms[kBase58Syms];
@@ -137,10 +146,9 @@ VG_FN void primitive_rep(uint32_t a[8], uint32_t b[8], const int32_t* table) {
 }
 
 // r = a after R repetitions of primitive kPrim
-template <int kPrim>
+template <int kPrim, class T>
 VG_FN void primitive_lane(uint32_t r[8], const uint32_t a_in[8],
-                          const uint32_t b_in[8], const int32_t* table,
-                          int reps) {
+                          const uint32_t b_in[8], const T* table, int reps) {
   uint32_t a[8], b[8];
   fe_copy(a, a_in);
   fe_copy(b, b_in);

@@ -1,4 +1,4 @@
-// The seven probe kernels, for the measurement tools of
+// The eight probe kernels, for the measurement tools of
 // vgen_tpu_torch/probes (never launched by a scan).  They replace the
 // TPU probes of scripts/:
 //
@@ -18,7 +18,12 @@
 //   (make_row1d, make_row2d, make_full2d): one dependent chain per lane
 //   over two block shapes, or 16 independent chains;
 // - probe_layout<kLayout>: scripts/microbench_layout.py:75 (make :60): R
-//   chained field multiplies with the operands in one of four layouts.
+//   chained field multiplies with the operands in one of four layouts;
+// - probe_single_key<kStage>: no TPU probe; kernel D's P2PKH lane over the
+//   product's tiles cut after a stage, for profile_dfa.py, which also
+//   launches C and D over the persistent tile loop (probe_range_tiles,
+//   probe_dfa_tiles), D with kernel E's symbol arrays, and C and D on the
+//   per-lane grid (match_kernels.cuh interval_kernel, dfa_kernel).
 //
 // The TPU probes timed (16, 8, 512) VMEM tiles of 16-bit limbs and
 // one-hot matmuls; here a lane is one thread on 32-bit limbs, the layout
@@ -36,6 +41,8 @@
 #include <type_traits>
 
 #include "geometry_lanes.cuh"
+#include "match_kernels.cuh"
+#include "single_key_lanes.cuh"
 
 namespace {
 
@@ -44,16 +51,29 @@ using namespace vg::probe;
 
 constexpr int kBlock = 128;
 
+// dfachar60s stages the (64, 60) table in shared memory as kernel D's
+// narrow form (uint16), the other instances read the int32 table
 template <int kPrim>
 __global__ void probe_primitive(const uint32_t* a_in, const uint32_t* b_in,
                                 const int32_t* table, uint32_t* out, long n,
                                 int reps) {
+  constexpr bool kShared = kPrim == kDfaChar60Shared;
+  __shared__ uint16_t s_table[kShared ? kDfaStates * kDfaWidth : 1];
+  if constexpr (kShared) {
+    for (int i = threadIdx.x; i < kDfaStates * kDfaWidth; i += blockDim.x)
+      s_table[i] = (uint16_t)table[i];
+    __syncthreads();
+  }
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   uint32_t a[8], b[8], r[8];
   fe_load(a, a_in, n, e);
   fe_load(b, b_in, n, e);
-  primitive_lane<kPrim>(r, a, b, table, reps);
+  if constexpr (kShared) {
+    primitive_lane<kPrim>(r, a, b, (const uint16_t*)s_table, reps);
+  } else {
+    primitive_lane<kPrim>(r, a, b, table, reps);
+  }
   fe_store(out, n, e, r);
 }
 
@@ -157,6 +177,119 @@ __global__ void probe_layout(const uint32_t* __restrict__ a,
   const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   layout_lane<kLayout>(out, a, b, n, e, reps);
+}
+
+// Thread threadIdx.x's lanes of kernel C or D under schedule kSchedule
+// (stage: the prefetch's buffer, at the start of dynamic shared memory).
+template <int kSchedule, class Lane>
+__device__ __forceinline__ void run_tiles(const Lane& lane, const uint32_t* tx,
+                                          const uint32_t* ty,
+                                          const uint32_t* inv,
+                                          const int32_t* remaining,
+                                          int32_t* out, int K, int B,
+                                          uint32_t* stage) {
+  if constexpr (kSchedule == kTileGrid) {
+    single_key_tile(lane, tx, ty, inv, remaining, out, K, B, blockIdx.y,
+                    blockIdx.x, threadIdx.x);
+  } else {
+    single_key_tiles<kSchedule == kTilePrefetch>(
+        lane, tx, ty, inv, remaining, out, K, B, blockIdx.x, gridDim.x,
+        threadIdx.x, stage);
+  }
+}
+
+template <int kSchedule>
+constexpr int kStageOf = kSchedule == kTilePrefetch ? kStageBytes : 0;
+
+// Kernel C (P2PKH) under schedule kSchedule.
+template <int kSchedule>
+__global__ void __launch_bounds__(kTileLanes)
+    probe_range_tiles(const uint32_t* __restrict__ bx,
+                      const uint32_t* __restrict__ by,
+                      const uint32_t* __restrict__ tx,
+                      const uint32_t* __restrict__ ty,
+                      const uint32_t* __restrict__ inv,
+                      const uint32_t* __restrict__ lo,
+                      const uint32_t* __restrict__ hi, int n_slots,
+                      const int32_t* __restrict__ remaining,
+                      int32_t* __restrict__ out, int K, int B) {
+  extern __shared__ __align__(16) uint32_t dyn[];
+  __shared__ uint32_t s_lo[8 * 5], s_hi[8 * 5];
+  stage_intervals(s_lo, s_hi, lo, hi, n_slots);
+  const SingleKeyLane<kFmtP2PKH, IntervalHit> lane{bx, by,
+                                                   {s_lo, s_hi, n_slots}};
+  run_tiles<kSchedule>(lane, tx, ty, inv, remaining, out, K, B, dyn);
+}
+
+// Kernel D under schedule kSchedule, its table in form kShared (after the
+// stage buffer), the symbols walked in registers or (kArrays) in a
+// per-thread array.
+template <int kFmt, int kSchedule, bool kArrays, bool kShared>
+__global__ void __launch_bounds__(kTileLanes)
+    probe_dfa_tiles(const uint32_t* __restrict__ bx,
+                    const uint32_t* __restrict__ by,
+                    const uint32_t* __restrict__ tx,
+                    const uint32_t* __restrict__ ty,
+                    const uint32_t* __restrict__ inv,
+                    const void* __restrict__ table,
+                    const void* __restrict__ accept, int n_states, int width,
+                    int start, const int32_t* __restrict__ remaining,
+                    int32_t* __restrict__ out, int K, int B) {
+  extern __shared__ __align__(16) uint32_t dyn[];
+  with_dfa_table<kShared>(
+      table, accept, n_states, width, start, dyn + kStageOf<kSchedule> / 4,
+      [&](const auto& dfa) {
+        using D = std::decay_t<decltype(dfa)>;
+        using Hit = std::conditional_t<kArrays, ArrayHit<kFmt, D>,
+                                       WalkHit<kFmt, D>>;
+        const SingleKeyLane<kFmt, Hit> lane{bx, by, {dfa}};
+        run_tiles<kSchedule>(lane, tx, ty, inv, remaining, out, K, B, dyn);
+      });
+}
+
+// Kernel D's P2PKH lane cut after stage kStage, one tile per block.
+template <int kStage>
+__global__ void __launch_bounds__(kTileLanes)
+    probe_single_key(const uint32_t* __restrict__ bx,
+                     const uint32_t* __restrict__ by,
+                     const uint32_t* __restrict__ tx,
+                     const uint32_t* __restrict__ ty,
+                     const uint32_t* __restrict__ inv,
+                     const int32_t* __restrict__ remaining,
+                     int32_t* __restrict__ out, int K, int B) {
+  const StageLane<kStage> lane{bx, by};
+  single_key_tile(lane, tx, ty, inv, remaining, out, K, B, blockIdx.y,
+                  blockIdx.x, threadIdx.x);
+}
+
+// Launch a tile kernel over K windows of B lanes under schedule kSchedule
+// with smem bytes of dynamic shared memory: the grid (tiles per window,
+// K), or for the persistent schedules the SM count times the blocks of
+// kTileLanes threads resident per SM (the occupancy API), at most the
+// tiles.
+template <int kSchedule, class Kernel, class... Args>
+int launch_tiles(Kernel kernel, int smem, int K, int B, void* stream,
+                 Args... args) {
+  if ((long)K * B == 0) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid = tile_grid(K, B);
+  if constexpr (kSchedule != kTileGrid) {
+    int dev = 0, sms = 0, per_sm = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kTileLanes, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long g = (long)sms * per_sm, tiles = (long)grid.x * K;
+    grid = dim3((unsigned)(g < tiles ? g : tiles));
+  }
+  kernel<<<grid, kTileLanes, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 unsigned blocks(long n) { return (unsigned)((n + kBlock - 1) / kBlock); }
@@ -312,6 +445,91 @@ int launch_layout(int layout, const void* a, const void* b, void* out, int n,
   });
 }
 
+// Kernel C's and D's contracts (csrc/kernels.cu vgen_range_match,
+// vgen_dfa_match), by mode (single_key_lanes.cuh SingleKeyMode): the
+// stages read bx, by, tx, ty, inv and remaining; the C modes lo, hi,
+// n_slots too; D's tile modes the narrow table (uint16 table, uint8
+// accept, n_states x width) where shared, else the int32 one, as D's
+// per-lane grid mode always.  The modes of kSkAnyFormat take any hash
+// format fmt (csrc/dfa.cuh kFmtP2PKH ...), the others P2PKH alone.
+#define VG_ALL_HASH_FORMATS                                                  \
+  kFmtP2PKH, kFmtP2WPKH, kFmtP2SHP2WPKH, kFmtP2PKHUncompressed, kFmtEthereum
+
+int launch_single_key(int mode, int fmt, int shared, const void* bx,
+                      const void* by, const void* tx, const void* ty,
+                      const void* inv, const void* lo, const void* hi,
+                      int n_slots, const void* table, const void* accept,
+                      int n_states, int width, int start,
+                      const void* remaining, void* out, int K, int B,
+                      void* stream) {
+  if (fmt != kFmtP2PKH && !kSkAnyFormat(mode))
+    return (int)cudaErrorInvalidValue;
+  const int table_bytes = n_states * width * 2 + n_states;
+  if (shared && (width % 2 || table_bytes > kDfaSharedMax))
+    return (int)cudaErrorInvalidValue;
+  using Lanes = const uint32_t*;
+  const auto c = [&](auto sched) {
+    constexpr int kS = decltype(sched)::value;
+    return launch_tiles<kS>(probe_range_tiles<kS>, kStageOf<kS>, K, B, stream,
+                            (Lanes)bx, (Lanes)by, (Lanes)tx, (Lanes)ty,
+                            (Lanes)inv, (Lanes)lo, (Lanes)hi, n_slots,
+                            (const int32_t*)remaining, (int32_t*)out, K, B);
+  };
+  const auto d = [&](auto f, auto sched, auto arrays) {
+    constexpr int kF = decltype(f)::value, kS = decltype(sched)::value;
+    constexpr bool kA = decltype(arrays)::value;
+    const auto kernel = shared ? probe_dfa_tiles<kF, kS, kA, true>
+                               : probe_dfa_tiles<kF, kS, kA, false>;
+    return launch_tiles<kS>(kernel, kStageOf<kS> + (shared ? table_bytes : 0),
+                            K, B, stream, (Lanes)bx, (Lanes)by, (Lanes)tx,
+                            (Lanes)ty, (Lanes)inv, table, accept, n_states,
+                            width, start, (const int32_t*)remaining,
+                            (int32_t*)out, K, B);
+  };
+  using Persistent = std::integral_constant<int, kTilePersistent>;
+  using Prefetch = std::integral_constant<int, kTilePrefetch>;
+  using P2PKH = std::integral_constant<int, kFmtP2PKH>;
+  switch (mode) {
+    case kSkCPersistent: return c(Persistent{});
+    case kSkCPrefetch: return c(Prefetch{});
+    case kSkDPersistent: return d(P2PKH{}, Persistent{}, std::false_type{});
+    case kSkDPrefetch: return d(P2PKH{}, Prefetch{}, std::false_type{});
+    case kSkDArrays:
+      return for_format<VG_ALL_HASH_FORMATS>(fmt, [&](auto f) {
+        return d(f, std::integral_constant<int, kTileGrid>{},
+                 std::true_type{});
+      });
+    case kSkCLane:
+      return launch_interval<false, VG_ALL_HASH_FORMATS>(
+          fmt, bx, by, tx, ty, inv, lo, hi, n_slots, remaining, out, K, B,
+          stream);
+    case kSkDLane:
+      return launch_dfa<false, VG_ALL_HASH_FORMATS>(
+          fmt, bx, by, tx, ty, inv, table, accept, width, start, remaining,
+          out, K, B, stream);
+  }
+  return dispatch<0, kNumSingleKeyStages>(mode, [&](auto m) {
+    return launch_tiles<kTileGrid>(
+        probe_single_key<decltype(m)::value>, 0, K, B, stream, (Lanes)bx,
+        (Lanes)by, (Lanes)tx, (Lanes)ty, (Lanes)inv,
+        (const int32_t*)remaining, (int32_t*)out, K, B);
+  });
+}
+
+// Blocks of the product's kernel D (P2PKH) resident per SM: the shared
+// form with a table of table_bytes, or the int32 one; or minus the
+// cudaError.  What the shared-memory budget costs in occupancy.
+int dfa_blocks_per_sm(int shared, int table_bytes) {
+  int blocks = 0;
+  const cudaError_t e =
+      shared ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &blocks, dfa_tile_kernel<kFmtP2PKH, true>, kTileLanes,
+                   table_bytes)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &blocks, dfa_tile_kernel<kFmtP2PKH, false>, kTileLanes, 0);
+  return e != cudaSuccess ? -(int)e : blocks;
+}
+
 }  // namespace
 
 // C entry points.  probe_primitive, probe_issue, probe_fieldmul: a, b, out
@@ -367,6 +585,22 @@ int vgen_probe_rows_blocks_per_sm(int shape, int mul, int threads) {
 int vgen_probe_layout(int layout, const void* a, const void* b, void* out,
                       int n, int reps, void* stream) {
   return launch_layout(layout, a, b, out, n, reps, stream);
+}
+
+int vgen_probe_single_key(int mode, int fmt, int shared, const void* bx,
+                          const void* by,
+                          const void* tx, const void* ty, const void* inv,
+                          const void* lo, const void* hi, int n_slots,
+                          const void* table, const void* accept, int n_states,
+                          int width, int start, const void* remaining,
+                          void* out, int K, int B, void* stream) {
+  return launch_single_key(mode, fmt, shared, bx, by, tx, ty, inv, lo, hi,
+                           n_slots, table, accept, n_states, width, start,
+                           remaining, out, K, B, stream);
+}
+
+int vgen_probe_dfa_blocks_per_sm(int shared, int table_bytes) {
+  return dfa_blocks_per_sm(shared, table_bytes);
 }
 
 }  // extern "C"

@@ -46,7 +46,11 @@ PRIMITIVES = {
     "dfachar60": (11, bm.DFA_STEP),
     "b58syms": (12, bm.B58_SYMBOLS),
     "ethsyms": (13, bm.EIP55_SYMBOLS),
+    "dfachar60s": (14, bm.DFA_STEP),
 }
+# the DFA step instances and their row length: dfachar60s steps through
+# kernel D's shared-memory form (the table staged as uint16)
+DFA_PRIMITIVES = {"dfachar24": 24, "dfachar60": 60, "dfachar60s": 60}
 DFA_STATES, DFA_WIDTH = 64, 60  # the table both dfachar instances read
 TAPTWEAK_MIDSTATE = sha256.tagged_midstate("TapTweak")
 R0, MAX_REPS = 8, 1 << 14
@@ -87,6 +91,11 @@ _VALUE = {"p2pkh": {"hash160c": 1},
           "ethereum": {"keccak": 1}}
 _SYMBOLS = {f: ({"ethsyms": 1, "dfachar24": 41} if f == "ethereum"
                 else {"b58syms": 1, "dfachar60": 35}) for f in _VALUE}
+# kernel D walks its table in shared memory (dfachar60s, for every width);
+# bech32's symbols, which no primitive times, count as nothing
+_WALK = {f: ({"ethsyms": 1, "dfachar60s": 41} if f == "ethereum"
+             else {"b58syms": 1, "dfachar60s": 35}) for f in _VALUE}
+_WALK["p2wpkh"] = {"dfachar60s": 40}
 
 
 def _plus(*parts, times=1):
@@ -110,9 +119,15 @@ def _kernel_recipes():
             else _GLV_FINISH
         recipes["range_glv_match" + sfx] = _plus(glv, _plus(value, times=6))
         recipes["range_match" + sfx] = _plus(_FINISH, value)
-        recipes["dfa_match" + sfx] = _plus(_FINISH, value, _SYMBOLS[f])
+        recipes["dfa_match" + sfx] = _plus(_FINISH, value, _WALK[f])
         recipes["glv_dfa_match" + sfx] = _plus(
             glv, _plus(value, _SYMBOLS[f], times=6))
+    recipes["range_match[p2wpkh]"] = _plus(_FINISH, _VALUE["p2pkh"])
+    recipes["dfa_match[p2wpkh]"] = _plus(_FINISH, _VALUE["p2pkh"],
+                                         _WALK["p2wpkh"])
+    # kernel D at the int32 table through the read-only cache
+    recipes["dfa_match[global]"] = _plus(_FINISH, _VALUE["p2pkh"],
+                                         _SYMBOLS["p2pkh"])
     return recipes
 
 
@@ -152,8 +167,8 @@ def primitive_out(name: str, a: torch.Tensor, b: torch.Tensor,
     if name == "leanadd":
         X, Y, Z, ok = curve.jacobian_add_affine_lean(a, b, a, b, a)
         return list(X) + list(Y) + list(Z) + [ok.to(torch.int64)]
-    if name in ("dfachar24", "dfachar60"):
-        width = int(name[len("dfachar"):])
+    if name in DFA_PRIMITIVES:
+        width = DFA_PRIMITIVES[name]
         return [table[(b[0] % DFA_STATES) * width + a[0] % width]]
     if name == "b58syms":
         syms, length = encode.base58check_symbols(0, list(a[:5]))

@@ -130,16 +130,21 @@ class DeviceScanner:
         table = torch.from_numpy(dfa.table.astype(np.int32)).to(dev)
         accept = torch.from_numpy(dfa.accept.astype(np.int32)).to(dev)
         start = int(dfa.start)
+        # kernel D's narrow table, once per pattern, where it takes the
+        # shared form (range scans of the hash formats)
+        narrow = (fused.narrow_dfa(table, accept)
+                  if not glv and self.fmt in fused.FMT_CODE
+                  and fused.dfa_form(*table.shape) == "shared" else None)
 
         def step(bx, by, rem):
             return fused.fused_scan_step(self.fmt, bx, by, self.tx, self.ty,
                                          table, accept, start, rem, glv,
-                                         self.wt)
+                                         self.wt, narrow)
 
         def mask_step(bx, by, rem):
             return fused.fused_scan_mask_step(
                 self.fmt, bx, by, self.tx, self.ty, table, accept, start, rem,
-                glv, self.wt)
+                glv, self.wt, narrow)
 
         return step, mask_step, True
 
