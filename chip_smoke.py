@@ -64,18 +64,27 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     their plain versions on CPU: real tables and base points, K = 2, B =
     8192, one window based below B (the doubling lane; and key 10286,
     whose first add at 16 signed bits meets its own point, its output key
-    held to the oracle's); bit-equal, matching lanes > 0;
+    held to the oracle's); bit-equal, matching lanes > 0; I also in both
+    table forms on q$ and on a.{7}$ (258 states, over the shared-memory
+    budget D and I share, within the shared form's cap: the global form by
+    default), and on a.{8}$ (514, over the cap) in the global form, the
+    shared one refused, each form's launch counted;
 17. ``generate -f p2tr -p ^bc1pqq -c 3`` at full width: oracle-confirmed;
     kernels A, F, G and H launched, I not;
-18. ``generate -f p2tr -p qq$ -c 3``: kernels A, F, G and I, H not;
-19. a full-width P2TR DFA range of two windows (1048576 keys, qq$, -c 0):
-    the match set equals the native CPU scanner's, key for key;
+18. ``generate -f p2tr -p qq$ -c 3``: kernels A, F, G and I (its shared
+    form, ``fused.p2tr_finish_match.forms``), H not;
+19. a full-width P2TR DFA range of two windows (1048576 keys, qq$, -c 0)
+    through I's shared form: the match set equals the native CPU
+    scanner's, key for key; the same range on a.{8}$ -c 1 through I's
+    global form returns the native scanner's lowest key;
 20. kernels F, G, H and I and their plain versions timed at K = 8,
     B = 524288 with CUDA events, outputs compared again (the plain ladder
     at K = 1 when K = 8 would take over 60 s, judged from one window),
-    and F's finish=False form at N = 524288; F on the 8-bit table and G
-    at (64, 1) timed once beside them, their outputs (F's output key x
-    and ok) held to the product's;
+    I in both table forms (the row ``p2tr_finish_match[global]``), and
+    F's finish=False form at N = 524288; F on the 8-bit table, G at (64,
+    1) and I on the per-lane grid (the probe unit's ``i_lane``) timed once
+    beside them, their outputs (F's output key x and ok) held to the
+    product's;
 21. timed benchmark_device runs (about 5 s each) on P2TR patterns that
     never match: an interval pattern through kernels A, F, G and H, and a
     suffix through A, F, G and I.
@@ -122,10 +131,15 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     524288 lanes; 1024 x 128 lanes of 8192 steps; 2^20 lanes at R = 8),
     its launches counted, held bit-equal to its plain version on the card
     (and the tiles to kernel B) and against its bound, with the new
-    kernels' ptxas figures; and probe_single_key's 11 modes (kernel D
+    kernels' ptxas figures; probe_single_key's 11 modes (kernel D
     cut by stage; C and D over the persistent tile loop, D with symbol
     arrays, and both on the per-lane grid) the same way at two windows of
-    4096 lanes and at profile_dfa's K = 8 windows of 524288;
+    4096 lanes and at profile_dfa's K = 8 windows of 524288; and
+    probe_p2tr_match's 7 modes (kernel I cut after qx and after the
+    bech32m checksum by table lookups and by the polymod; I with the
+    polymod, under a minimum of 4 blocks per SM and with symbol arrays;
+    the per-lane I) at two windows of 4096 lanes and at profile_p2tr_match's
+    shape;
 29. the range DFA rate per format: 64 whole super-steps (268,435,456
     keys) of a never-matching suffix through kernels A and D (in the form
     its table takes), after one warm-up super-step.
@@ -140,7 +154,10 @@ of phases 22-26 ``<kernel>[<format>]``; their launches are those of the
 format's path run (phases 23 and 24).  Phase 14 adds P2WPKH's C and D
 (launches from phase 13's P2WPKH ranges) and ``dfa_match[global]``, D's
 int32 form, whose launches are those of the a.{8}$ range; D's launches
-are counted per form (``fused.dfa_match.forms``).  The probes' rows are
+are counted per form (``fused.dfa_match.forms``), and so are kernel I's
+(``fused.p2tr_finish_match.forms``): phase 20's
+``p2tr_finish_match[global]`` takes its launches from phase 19's a.{8}$
+range.  The probes' rows are
 ``<kernel>[<instance>]`` with ``ms`` the time of one launch of 2R
 repetitions (best of five), and their launches those of that timing; the
 log gives t(2R) - t(R) beside it, the tools' cost of R repetitions, which
@@ -163,8 +180,9 @@ run's tweaks in its schedule (``probes/sweep_ladder_window.py``
 ``ladder_count``), kernels A and G share one inversion and a product
 tree per group (``probes/sweep_inv_chain.py`` ``chain_count``), kernel D
 walks Base58Check in its register form (``bound_model.B58_WALK``) and
-reads its table once in the form it takes (the narrow form's 2 bytes an
-entry and 1 a state in shared memory, or the int32 table).  A
+kernel I bech32m in its (``BECH32M_WALK``), each reading its table once
+in the form it takes (the narrow form's 2 bytes an entry and 1 a state
+in shared memory, or the int32 table).  A
 kernel timed below its bound fails the run: the model would then count
 more than the work needs.
 """
@@ -238,7 +256,7 @@ def main():
     from vgen_tpu_torch.csrc import build
     from vgen_tpu_torch.ops import curve, fused, pipeline, u256
     from vgen_tpu_torch.probes.bound_model import (
-        B58_SYMBOLS, B58_WALK, BECH32, BECH32M, DFA_STEP, EIP55_SYMBOLS,
+        B58_SYMBOLS, B58_WALK, BECH32, BECH32M_WALK, DFA_STEP, EIP55_SYMBOLS,
         FE_ADD, FE_MUL, FE_SQR, FINISH_XY,
         HASH160, KECCAK, KECCAK_X_ONLY, RIPEMD160, SCRIPT_HASH, SHA256_X65,
         SHA256_X65_PAIR, bound, compare)
@@ -288,11 +306,14 @@ def main():
             w.launches = 0
         for form in fused.DFA_FORMS:
             fused.dfa_match.forms[form] = 0
+            fused.p2tr_finish_match.forms[form] = 0
 
     def read_launches():
         got = {n: w.launches for n, w in wrappers.items()}
         got.update({f"dfa_match[{form}]": n
                     for form, n in fused.dfa_match.forms.items()})
+        got.update({f"p2tr_finish_match[{form}]": n
+                    for form, n in fused.p2tr_finish_match.forms.items()})
         return got
 
     def run_cli(argv, quiet=True):
@@ -1007,6 +1028,46 @@ def main():
     same("p2tr_finish_match", I_d, I_c)
     require(int(H_c.sum()) > 0 and int(I_c.sum()) > 0,
             "kernels H, I: no matching lane")
+    # kernel I in each table form a table takes: q$ (4 states, the shared
+    # form by default) and a.{7}$ (258, over the budget, within the shared
+    # form's cap: the global form by default) in both; a.{8}$ (514, over
+    # the cap) in the global one, the shared one refused
+    forms16 = {}
+    for src in ("q$", "a.{7}$", "a.{8}$"):
+        tab, acc, st = dfa_tensors(Pattern(src), p2tr)
+        S_ = tab.shape[0]
+        want = I_c if src == "q$" else fused.p2tr_finish_match(
+            X_c, Z_c, zi_c, ok_c, tab, acc, st, rem16)
+        require(int(want.sum()) > 0, f"kernel I {src}: no matching lane")
+        fits = S_ * (2 * tab.shape[1] + 1) <= fused.DFA_SHARED_MAX
+        tab_d, acc_d = tab.to(dev), acc.to(dev)
+        for form in (None,) + (fused.DFA_FORMS if fits else ("global",)):
+            used = form or fused.dfa_form(*tab.shape)
+            before = fused.p2tr_finish_match.forms[used]
+            got16 = fused.p2tr_finish_match(X_d, Z_d, zi_d, ok_d, tab_d,
+                                            acc_d, st, rem16.to(dev),
+                                            form=form)
+            torch.cuda.synchronize()
+            require(fused.p2tr_finish_match.forms[used] == before + 1,
+                    f"kernel I {src}: the {used} form was not counted")
+            same("p2tr_finish_match", got16, want, f" ({src}, {used} form)")
+        if not fits:
+            try:
+                fused.p2tr_finish_match(X_d, Z_d, zi_d, ok_d, tab_d, acc_d,
+                                        st, rem16.to(dev), form="shared")
+            except ValueError as exc:
+                require("over the shared form" in str(exc), str(exc))
+            else:
+                raise SystemExit("chip_smoke FAILED: kernel I took a table "
+                                 "over the shared form's cap in the shared "
+                                 "form")
+        forms16[src] = (S_, fused.dfa_form(*tab.shape), int(want.sum()))
+    require([f for _, f, _ in forms16.values()] == ["shared", "global",
+                                                     "global"],
+            f"kernel I's default forms: {forms16}")
+    log(f"[16] kernel I (states, default form, matching lanes) {forms16}: "
+        f"each form == plain on K={K} B={B}; the shared form refused over "
+        f"its cap")
     require(int(H_c[0, bases16[0] - 1]) == 0 and int(H_c[1, B - 100:].sum()) == 0,
             "kernel H: a dead or out-of-window lane is set")
     log(f"[16] kernels F (both flags, schedules "
@@ -1033,6 +1094,10 @@ def main():
                                          "batch_inverse_chain", on))
                 and got[off] == 0,
                 f"{argv}: launches {got}, expected A, F, G, {on} and not {off}")
+        # qq$ (5 states): kernel I's shared form, every launch
+        require(on != "p2tr_finish_match" or got["p2tr_finish_match[shared]"]
+                == got["p2tr_finish_match"],
+                f"{argv}: launches {got}, expected kernel I's shared form")
         phase = 17 if on == "p2tr_finish_range" else 18
         log(f"[{phase}] {' '.join(argv)} (B=524288, k_sub=8) in {secs:.1f} s: "
             f"{[r['address'] for r in rows]} oracle-confirmed; launches {got}")
@@ -1061,11 +1126,34 @@ def main():
     require(rows[0]["operations"] == ref19.operations == end19 - start19 + 1,
             f"P2TR DFA range: operations {rows[0]['operations']}, native "
             f"{ref19.operations}")
-    require(got["p2tr_finish_match"] > 0 and got["p2tr_finish_range"] == 0,
-            f"P2TR DFA range: launches {got}, expected kernel I and not H")
+    require(got["p2tr_finish_match"] > 0 and got["p2tr_finish_range"] == 0
+            and got["p2tr_finish_match[shared]"] == got["p2tr_finish_match"],
+            f"P2TR DFA range: launches {got}, expected kernel I (its shared "
+            "form) and not H")
     log(f"[19] range -f p2tr {start19:x}:{end19:x} -p {src19} -c 0: "
         f"{len(keys19)} matches in {secs:.1f} s == native scanner's "
         f"({native_s:.1f} s); launches {got}")
+    # a table over the shared form's cap: kernel I's global form, -c 1
+    src19g = "a.{8}$"
+    reset_launches()
+    rows, _, secs = run_cli(["range", "-f", "p2tr", "-r",
+                             f"{start19:x}:{end19:x}", "-p", src19g, "-c",
+                             "1"])
+    got = path_launches["range dfa p2tr global"] = read_launches()
+    ref19g = _scan_cpu(Pattern(src19g), ScanConfig(
+        format=p2tr, start=start19, end=end19, count=1, use_device=False),
+        None, None)
+    want19g = [int(m.hex, 16) for m in ref19g.matches]
+    require(confirm(rows, p2tr, Pattern(src19g)) == want19g and want19g,
+            f"P2TR {src19g} -c 1: {rows}, native {want19g}")
+    require(got["p2tr_finish_match[global]"] > 0
+            and got["p2tr_finish_match[shared]"] == 0,
+            f"P2TR {src19g} range: launches {got}, expected kernel I's "
+            "global form")
+    log(f"[19] range -f p2tr -p {src19g} -c 1 "
+        f"({Pattern(src19g).device_dfa(p2tr).table.shape[0]} states, over "
+        f"the shared form's cap): {hex(want19g[0])}, the native scanner's "
+        f"lowest, in {secs:.1f} s; launches {got}")
 
     # -- 20. kernels F, G, H, I vs plain at the main shape --------------------
     K, B = sc.DEFAULT_K_SUB, sc.DEFAULT_DEVICE_BATCH
@@ -1077,6 +1165,8 @@ def main():
     lo20, hi20 = lo16.to(dev), hi16.to(dev)
     S20 = lo20.shape[0]
     tab20, acc20 = tab16.to(dev), acc16.to(dev)
+    # kernel I's narrow table, built once, as the scanner builds it
+    nar20 = fused.narrow_dfa(tab20, acc20)
 
     # the ladder's adds and negations on this run's tweaks, for each
     # schedule timed (probes/sweep_ladder_window.py ladder_work)
@@ -1106,11 +1196,10 @@ def main():
     ladder_bytes = lane_in + 68 * N
     finish_ops = N * (FE_MUL + FE_SQR)
     finish_in = 100 * N + 4 * K
-    # bech32m: 58 five-bit groups (2 each: the witness program's 52 and the
-    # checksum's 6) and 58 polymod steps on them (12 each: shift, mask,
-    # the symbol's XOR and five conditional XORs of 2; the human-readable
-    # part and the witness version fold to constants); the 60-step walk
-    bech32m_walk = BECH32M + 60 * DFA_STEP
+    # kernel I's register walk (bound_model.BECH32M_WALK): the checksum as
+    # 52 table lookups of the program's five-bit groups, the checksum's 6
+    # groups and the 60 steps; its table read once in the form it takes
+    i_ops = finish_ops + N * BECH32M_WALK
     Mz = fused._chain_len(N, fused.INV_GEOMETRY[0])
     for kname, run, plain, ref, replaces, path, ops, nbytes, pshape in (
         ("p2tr_ladder",
@@ -1133,20 +1222,31 @@ def main():
          shape),
         ("p2tr_finish_match",
          lambda: fused.p2tr_finish_match(X_f, Z_f, zi_f, ok_f, tab20, acc20,
-                                         st16, remf),
+                                         st16, remf, narrow=nar20),
          lambda: fused.p2tr_finish_match_plain(X_f, Z_f, zi_f, ok_f, tab20,
                                                acc20, st16, remf), None,
-         "vgen_tpu/ops/pallas_fused.py:1028", "random dfa p2tr",
-         finish_ops + N * bech32m_walk,
-         finish_in + 4 * (tab20.numel() + acc20.numel()) + 4 * N, shape),
+         "vgen_tpu/ops/pallas_fused.py:1028", "random dfa p2tr", i_ops,
+         finish_in + d_bytes(tab20, "shared") + 4 * N, shape),
+        ("p2tr_finish_match[global]",
+         lambda: fused.p2tr_finish_match(X_f, Z_f, zi_f, ok_f, tab20, acc20,
+                                         st16, remf, form="global"),
+         lambda: fused.p2tr_finish_match_plain(X_f, Z_f, zi_f, ok_f, tab20,
+                                               acc20, st16, remf), None,
+         "vgen_tpu/ops/pallas_fused.py:1028", "range dfa p2tr global", i_ops,
+         finish_in + d_bytes(tab20, "global") + 4 * N, shape),
     ):
         if ref is None:
             ref = run()
         hits = int((ok_f if kname == "p2tr_ladder" else ref).ne(0).sum())
         require(hits > 0, f"{kname} at {shape}: no live or matching lane")
+        if kname == "p2tr_finish_match":
+            ref_i = ref
+        # ten launches of the finishes (about 0.2-0.3 ms each), three of
+        # the ladder and the chain
         ms, plain_ms, bms, bby = time_kernel(
             kname, run, plain, ref, replaces, path_launches[path][kname],
-            err16[kname], pshape, ops, nbytes, reps=3)
+            err16[kname.split("[")[0]], pshape, ops, nbytes,
+            reps=10 if kname.startswith("p2tr_finish") else 3)
         log(f"[20] {kname} at {shape}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms at {pshape}, bound {bms:.3f} ms ({bby}), "
             f"bit-equal, {hits} live/matching lanes ({smi})")
@@ -1166,7 +1266,24 @@ def main():
         "batch_inverse_chain", "(64, 1)",
         lambda: fused.batch_inverse_chain(Z_f, chain=64, group=1), zi_f,
         N * sic.chain_count(64, 1, sic.G_INPUT), 64 * N, 10)
+    # kernel I on the per-lane grid (the probe unit's i_lane: one thread
+    # per lane, the symbol array, the int32 table)
+    from vgen_tpu_torch.probes import profile_p2tr_match as ppm
+
+    old_i, old_i_bms = time_old(
+        "p2tr_finish_match", "the per-lane grid (i_lane)",
+        lambda: ppm.probe_p2tr_match("i_lane", X_f, Z_f, zi_f, ok_f, tab20,
+                                     acc20, st16, remf), ref_i, i_ops,
+        finish_in + d_bytes(tab20, "global") + 4 * N, 10)
+    del ref_i
     rows20 = {k["name"]: k for k in kernels}
+    log(f"[20] p2tr_finish_match on the per-lane grid (i_lane): "
+        f"{old_i:.3f} ms, "
+        f"bound {old_i_bms:.3f} ms; the product (tiles, register walk) "
+        f"{rows20['p2tr_finish_match']['ms']:.3f} ms in the shared form "
+        f"({rows20['p2tr_finish_match']['ms'] / old_i:.3f} of it), "
+        f"{rows20['p2tr_finish_match[global]']['ms']:.3f} ms in the global "
+        f"one; outputs equal ({smi})")
     log(f"[20] p2tr_ladder on the 8u table ({adds8 / N:.3f} adds a lane, "
         f"the {slw.schedule_name(bits, signed)} schedule {adds / N:.3f} and "
         f"{negs / N:.3f} negations): {old_f:.3f} ms, bound {old_f_bms:.3f} "
@@ -1565,7 +1682,8 @@ def main():
     t0 = time.time()
     probe_log = build.build_log(("probes",))
     for kname in ("probe_glv_stage", "probe_vtile", "probe_rows",
-                  "probe_layout", "probe_single_key"):
+                  "probe_layout", "probe_single_key", "probe_p2tr_match",
+                  "probe_p2tr_match_lane"):
         figs = ptiming.ptxas_figures(probe_log, kname)
         log(f"[28] ptxas {kname}: " + "; ".join(
             f"{args} {ptiming.ptxas_text(f)}" for args, f in sorted(
@@ -1600,6 +1718,14 @@ def main():
         pdfa.inputs(dev)[:5] + (sk_lo.to(dev), sk_hi.to(dev))
         + pdfa.pattern_dfa(pdfa.DFA_PATTERN, device=dev)
         + (torch.full((pdfa.K,), pdfa.B, dtype=torch.int32, device=dev),))
+    # probe_p2tr_match: two windows of n28 lanes (the second partial) on q$,
+    # then the tool's K = 8 windows of 524288 lanes on its pattern
+    inputs28["p2tr"] = (
+        ppm.inputs("cpu", 2, n28, remaining=[n28, n28 - 100])[:4]
+        + ppm.pattern_dfa("q$")
+        + (torch.tensor([n28, n28 - 100], dtype=torch.int32),),
+        ppm.inputs(dev)[:4] + ppm.pattern_dfa(ppm.PATTERN, dev)
+        + (torch.full((ppm.K,), ppm.B, dtype=torch.int32, device=dev),))
     kernel_b = {kind: fused.range_glv_match(AddressFormat.P2PKH,
                                             *inputs28[kind][1])
                 for kind in ("stage", "vtile")}
@@ -1668,6 +1794,18 @@ def main():
          "vgen_tpu/ops/pallas_fused.py:"
          + ("1243" if m in pdfa.C_MODES else "165"), False)
         for m in pdfa.MODES]
+    pm_tab = inputs28["p2tr"][1][4]
+    pm_nar = fused.narrow_dfa(*inputs28["p2tr"][1][4:6])
+    probes28 += [
+        (f"probe_p2tr_match[{m}]", ppm.probe_p2tr_match, "p2tr",
+         lambda args, m=m: ppm.probe_p2tr_match(
+             m, *args, narrow=pm_nar if args[4] is pm_tab else None),
+         lambda args, m=m: ppm.match_plain(m, *args),
+         ppm.K * ppm.B * ppm.stage_count(m), ppm.stage_nbytes(
+             m, ppm.table_bytes(pm_tab, "global" if m == "i_lane" else
+                                fused.dfa_form(*pm_tab.shape))),
+         "vgen_tpu/ops/pallas_fused.py:1028", False)
+        for m in ppm.MODES]
     err28 = {}
     small_plain = {}  # the vtile instances share one plain output
     for rname, _, kind, run, plain, _, _, _, is_b in probes28:

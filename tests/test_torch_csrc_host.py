@@ -28,6 +28,7 @@ pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
 
 HARNESS = r"""
 #include "p2tr_lanes.cuh"
+#include "p2tr_match_lanes.cuh"
 extern "C" {
 // per element e < n of (8, n) limb-major arrays
 void h_field(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, int n) {
@@ -100,7 +101,7 @@ void h_p2tr_finish(int dfa_route, const uint32_t* X, const uint32_t* Z,
   const vg::Dfa dfa{table, accept, width, start};
   for (long e = 0; e < N; e++)
     out[e] = dfa_route
-        ? vg::p2tr_dfa_lane(X, Z, zi, ok, dfa, rem, B, N, e)
+        ? vg::probe::p2tr_dfa_lane(X, Z, zi, ok, dfa, rem, B, N, e)
         : vg::p2tr_range_lane(X, Z, zi, ok, lo, hi, n_slots, rem, B, N, e);
 }
 int h_base58(uint32_t version, const uint32_t* h, uint8_t* syms) {
@@ -198,7 +199,8 @@ def lib(tmp_path_factory):
     src, so = d / "harness.cc", d / "harness.so"
     src.write_text(HARNESS)
     subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
-                    f"-I{build.CSRC}", "-o", str(so), str(src)], check=True)
+                    f"-I{build.CSRC}", f"-I{build.PROBES}", "-o", str(so),
+                    str(src)], check=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.h_base58.argtypes, lib.h_base58.restype = [ctypes.c_uint32, p, p], i

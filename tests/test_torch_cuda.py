@@ -516,3 +516,73 @@ def test_single_key_probe_modes_equal_plain(dev):
                 fmt=fmt)
             want = pd.single_key_plain(mode, *cpu[:5], *m_f, cpu[5], fmt=fmt)
             assert torch.equal(got.cpu(), want), (mode, fmt)
+
+
+# Kernel I's table forms (one tile of one window per block, the bech32m
+# walk in registers) and the P2TR probe's modes.
+def _p2tr_finish_inputs(dev, rem=(B, B - 9, 0, 1000)):
+    """(cpu, gpu) kernel I inputs (X, Z, zi, ok, remaining): random X, Z,
+    zi = 1 / Z, a lane with ok 0 and one with Z 0."""
+    from vgen_tpu_torch.probes import profile_p2tr_match as ppm
+
+    X, Z, zi, ok, remaining = ppm.inputs("cpu", len(rem), B, remaining=rem)
+    Z = Z.clone()
+    Z[:, 33] = 0
+    cpu = (X, Z, zi, ok, remaining)
+    return cpu, tuple(t.to(dev) for t in cpu)
+
+
+def _p2tr_dfa(src):
+    dfa = Pattern(src).device_dfa(AddressFormat.P2TR)
+    return (torch.from_numpy(dfa.table.astype(np.int32)),
+            torch.from_numpy(dfa.accept.astype(np.int32)), dfa.start)
+
+
+@pytest.mark.parametrize("form", fused.DFA_FORMS)
+@pytest.mark.parametrize("src", ["q$", "[ac-h]d", "a.{7}$"])
+def test_p2tr_finish_match_both_forms_equal_plain(dev, src, form):
+    table, accept, start = _p2tr_dfa(src)
+    cpu, gpu = _p2tr_finish_inputs(dev)
+    before = dict(fused.p2tr_finish_match.forms)
+    got = fused.p2tr_finish_match(*gpu[:4], table.to(dev), accept.to(dev),
+                                  start, gpu[4], form=form)
+    torch.cuda.synchronize()
+    assert fused.p2tr_finish_match.forms[form] == before[form] + 1
+    want = fused.p2tr_finish_match_plain(*cpu[:4], table, accept, start,
+                                         cpu[4])
+    assert torch.equal(got.cpu(), want)
+    assert int(want.sum()) > 0 and int(want[2].sum()) == 0
+
+
+def test_p2tr_finish_match_over_the_budget_takes_the_global_form(dev):
+    table, accept, start = _p2tr_dfa("a.{8}$")  # 514 states
+    assert table.shape[0] > 237
+    assert fused.dfa_form(*table.shape) == "global"
+    cpu, gpu = _p2tr_finish_inputs(dev)
+    before = fused.p2tr_finish_match.forms["global"]
+    got = fused.p2tr_finish_match(*gpu[:4], table.to(dev), accept.to(dev),
+                                  start, gpu[4])
+    torch.cuda.synchronize()
+    assert fused.p2tr_finish_match.forms["global"] == before + 1
+    assert torch.equal(got.cpu(), fused.p2tr_finish_match_plain(
+        *cpu[:4], table, accept, start, cpu[4]))
+    with pytest.raises(ValueError, match="over the shared form"):
+        fused.p2tr_finish_match(*gpu[:4], table.to(dev), accept.to(dev),
+                                start, gpu[4], form="shared")
+
+
+def test_p2tr_match_probe_modes_equal_plain(dev):
+    from vgen_tpu_torch.probes import profile_p2tr_match as ppm
+
+    cpu, gpu = _p2tr_finish_inputs(dev)
+    dfa = _p2tr_dfa("q$")
+    for mode in ppm.MODES:
+        for form in (fused.DFA_FORMS if mode in ppm.FORM_WALKS else (None,)):
+            before = ppm.probe_p2tr_match.launches
+            got = ppm.probe_p2tr_match(mode, *gpu[:4], dfa[0].to(dev),
+                                       dfa[1].to(dev), dfa[2], gpu[4],
+                                       form=form)
+            torch.cuda.synchronize()
+            assert ppm.probe_p2tr_match.launches == before + 1
+            want = ppm.match_plain(mode, *cpu[:4], *dfa, cpu[4])
+            assert torch.equal(got.cpu(), want), (mode, form)

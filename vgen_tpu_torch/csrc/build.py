@@ -158,8 +158,8 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 "vgen_p2tr_ladder_affine": [p, p, p, p, p, p, i, i, i, p],
                 "vgen_batch_inverse_chain": [p, p, p, i, i, i, p],
                 "vgen_p2tr_finish_range": [p, p, p, p, p, p, i, p, p, i, i, p],
-                "vgen_p2tr_finish_match": [p, p, p, p, p, p, i, i, p, p, i, i,
-                                           p],
+                "vgen_p2tr_finish_match": [i, p, p, p, p, p, p, i, i, i, p, p,
+                                           i, i, p],
             },
             "probes": {
                 "vgen_probe_primitive": [i, p, p, p, p, i, i, p],
@@ -174,6 +174,8 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 "vgen_probe_layout": [i, p, p, p, i, i, p],
                 "vgen_probe_single_key": [i, i, i, p, p, p, p, p, p, p, i, p, p,
                                           i, i, i, p, p, i, i, p],
+                "vgen_probe_p2tr_match": [i, i, p, p, p, p, p, p, i, i, i, p,
+                                          p, i, i, p],
                 "vgen_probe_dfa_blocks_per_sm": [i, i],
             },
         }

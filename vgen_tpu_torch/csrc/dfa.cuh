@@ -8,12 +8,6 @@
 
 #include "encode.cuh"
 
-#ifdef __CUDACC__
-#define VG_LDG(p) __ldg(p)
-#else
-#define VG_LDG(p) (*(p))
-#endif
-
 namespace vg {
 
 // Address formats of kernels B to E (the values the wrappers pass,
@@ -54,8 +48,8 @@ VG_FN bool dfa_walk(const D& dfa, const uint8_t* syms, int T, int length) {
   return dfa_accepts(dfa, s);
 }
 
-// A DFA read by plain loads: kernel D keeps its table in shared memory in
-// the narrow form, uint16 entries and uint8 accept flags
+// A DFA read by plain loads: kernels D and I keep their table in shared
+// memory in the narrow form, uint16 entries and uint8 accept flags
 // (vgen_tpu_torch/ops/fused.py narrow_dfa); T and A are any integer types.
 template <class T, class A>
 struct DfaPlain {
@@ -75,8 +69,8 @@ VG_FN bool dfa_accepts(const DfaPlain<T, A>& dfa, int s) {
   return dfa.accept[s] != 0;
 }
 
-// Kernel D's walks: dfa_walk of a format's symbols, T + 1 steps, with
-// every symbol in registers and walked as it is made, so no array is
+// Kernel D's and I's walks: dfa_walk of a format's symbols, T + 1 steps,
+// with every symbol in registers and walked as it is made, so no array is
 // indexed at run time.  D is Dfa (the int32 table through the read-only
 // cache) or DfaPlain.
 //
@@ -132,6 +126,24 @@ VG_FN bool bech32_p2wpkh_walk(const D& dfa, const uint32_t h[5]) {
   return dfa_accepts(dfa, s);
 }
 
+// bech32m (P2TR, kernel I): the witness version 1, the 52 groups of x (8
+// little-endian limbs) as the polymod takes them, the last padded with 4
+// zero bits, the 6 checksum symbols and the end-of-string step: 60 steps.
+// The checksum is bech32m_p2tr_checksum's 52 independent table lookups,
+// not the polymod's chain of 58 dependent steps.
+template <class D>
+VG_FN bool bech32m_p2tr_walk(const D& dfa, const uint32_t x[8]) {
+  int s = dfa_step(dfa, dfa.start, 1);
+#pragma unroll
+  for (int g = 0; g < 52; g++) s = dfa_step(dfa, s, (int)bech32m_group(x, g));
+  const uint32_t chk = bech32m_p2tr_checksum(x);
+#pragma unroll
+  for (int i = 0; i < 6; i++)
+    s = dfa_step(dfa, s, (int)((chk >> (5 * (5 - i))) & 31u));
+  s = dfa_step(dfa, s, dfa.width - 2);
+  return dfa_accepts(dfa, s);
+}
+
 // EIP-55 (Ethereum): the checksum hash first, then the 40 cased nibbles
 // and the end-of-string step: 41 steps.
 template <class D>
@@ -177,5 +189,40 @@ VG_FN bool address_matches(const D& dfa, const uint32_t h[5]) {
     return dfa_walk(dfa, syms, kBase58Syms, len);
   }
 }
+
+// The largest narrow table (S * width uint16 entries and S uint8 accept
+// flags) that the shared form of kernels D and I copies into shared
+// memory: under the 48 KB a block takes without opting in.  Which form
+// the product takes for a table is the wrapper's choice
+// (vgen_tpu_torch/ops/fused.py dfa_form).
+constexpr int kDfaSharedMax = 32768;
+
+#ifdef __CUDACC__
+// run(dfa) with the table as kernel D's and I's lanes read it.  kShared:
+// the narrow form (uint16 table, uint8 accept; width even), which the
+// block copies into s_table (n_states * width * 2 + n_states bytes of
+// shared memory) -> a DfaPlain over the copy; else the int32 table and
+// accept read through the read-only cache (Dfa).
+template <bool kShared, class Run>
+__device__ __forceinline__ void with_dfa_table(const void* table,
+                                               const void* accept,
+                                               int n_states, int width,
+                                               int start, uint32_t* s_table,
+                                               const Run& run) {
+  if constexpr (kShared) {
+    const int words = n_states * width / 2;
+    const uint32_t* g_words = (const uint32_t*)table;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) s_table[i] = g_words[i];
+    uint8_t* s_accept = (uint8_t*)(s_table + words);
+    for (int i = threadIdx.x; i < n_states; i += blockDim.x)
+      s_accept[i] = ((const uint8_t*)accept)[i];
+    __syncthreads();
+    run(DfaPlain<uint16_t, uint8_t>{(const uint16_t*)s_table, s_accept, width,
+                                    start});
+  } else {
+    run(Dfa{(const int32_t*)table, (const int32_t*)accept, width, start});
+  }
+}
+#endif
 
 }  // namespace vg

@@ -278,19 +278,25 @@ VG_FN void bech32_p2wpkh_symbols(uint8_t syms[kBech32Syms],
   for (int i = 0; i < 6; i++) syms[33 + i] = (uint8_t)((chk >> (5 * (5 - i))) & 31u);
 }
 
+// Five-bit group g (0 .. 51) of x (8 little-endian limbs, x[7] the most
+// significant), most significant first, the last padded with 4 zero bits.
+VG_FN uint32_t bech32m_group(const uint32_t x[8], int g) {
+  const int o = 5 * g, i = o >> 5, s = o & 31;  // word i of x big-endian
+  const unsigned long long two =
+      ((unsigned long long)x[7 - i] << 32) | (i + 1 < 8 ? x[6 - i] : 0u);
+  return (uint32_t)(two >> (59 - s)) & 31u;
+}
+
 // bech32m symbols of a P2TR address after "bc1": witness version 1, the
-// 256 bits of x (8 little-endian limbs, x[7] the most significant) as 52
-// five-bit groups, most significant first, the last padded with 4 zero
-// bits, and the 6 checksum symbols (bech32m constant).  Always 59 symbols.
+// 256 bits of x as 52 five-bit groups (bech32m_group) and the 6 checksum
+// symbols (bech32m constant), the checksum by the polymod.  Always 59
+// symbols.
 VG_FN void bech32m_p2tr_symbols(uint8_t syms[kBech32mSyms], const uint32_t x[8]) {
   syms[0] = 1;
   uint32_t chk = kBech32InitBcV1;
 #pragma unroll
   for (int g = 0; g < 52; g++) {
-    const int o = 5 * g, i = o >> 5, s = o & 31;  // word i of x big-endian
-    const unsigned long long two =
-        ((unsigned long long)x[7 - i] << 32) | (i + 1 < 8 ? x[6 - i] : 0u);
-    const uint32_t v = (uint32_t)(two >> (59 - s)) & 31u;
+    const uint32_t v = bech32m_group(x, g);
     syms[1 + g] = (uint8_t)v;
     chk = bech32_polymod_step(chk, v);
   }
@@ -299,6 +305,68 @@ VG_FN void bech32m_p2tr_symbols(uint8_t syms[kBech32mSyms], const uint32_t x[8])
   chk ^= kBech32mConst;
 #pragma unroll
   for (int i = 0; i < 6; i++) syms[53 + i] = (uint8_t)((chk >> (5 * (5 - i))) & 31u);
+}
+
+// bech32m's checksum of a P2TR program as 52 independent table lookups
+// (kernel I's; bech32m_p2tr_symbols keeps the polymod).  A polymod step
+// chk -> ((chk & 0x1FFFFFF) << 5) ^ v ^ G(chk >> 25), G the XOR of the
+// generators of the top bits that are set, is linear over GF(2) in chk
+// and v.  With L the step at v = 0, the checksum of groups v_0 .. v_51 is
+//   L^58(kBech32InitBcV1) ^ XOR_g L^(57 - g)(v_g) ^ kBech32mConst
+//   = kBech32mFixed ^ XOR_g BECH32M_GROUPS.t[32 g + v_g],
+// the table's row g holding L^(57 - g)(v) for the 32 values of v.  The
+// compiler builds the table (52 x 32 words, 6.5 KB) and the constant; a
+// warp's 32 lookups of one group fall in one 128-byte row.
+struct Bech32mGroups {
+  uint32_t t[52 * 32];
+};
+
+// L: one polymod step with a zero symbol
+VG_HD constexpr uint32_t bech32_polymod_shift(uint32_t chk) {
+  const uint32_t top = chk >> 25;
+  uint32_t r = (chk & 0x1FFFFFFu) << 5;
+  r ^= (top & 1u) ? 0x3B6A57B2u : 0u;  // BECH32_GEN
+  r ^= (top & 2u) ? 0x26508E6Du : 0u;
+  r ^= (top & 4u) ? 0x1EA119FAu : 0u;
+  r ^= (top & 8u) ? 0x3D4233DDu : 0u;
+  r ^= (top & 16u) ? 0x2A1462B3u : 0u;
+  return r;
+}
+
+VG_HD constexpr Bech32mGroups bech32m_groups() {
+  Bech32mGroups r{};
+  uint32_t basis[5] = {};  // L^(57 - g)(1 << b), from g = 51 down
+  for (int b = 0; b < 5; b++) {
+    basis[b] = 1u << b;
+    for (int j = 0; j < 6; j++) basis[b] = bech32_polymod_shift(basis[b]);
+  }
+  for (int g = 51; g >= 0; g--) {
+    for (int v = 0; v < 32; v++) {
+      uint32_t e = 0;
+      for (int b = 0; b < 5; b++)
+        if ((v >> b) & 1) e ^= basis[b];
+      r.t[32 * g + v] = e;
+    }
+    for (int b = 0; b < 5; b++) basis[b] = bech32_polymod_shift(basis[b]);
+  }
+  return r;
+}
+
+VG_HD constexpr uint32_t bech32m_fixed() {
+  uint32_t chk = kBech32InitBcV1;
+  for (int j = 0; j < 58; j++) chk = bech32_polymod_shift(chk);
+  return chk ^ kBech32mConst;
+}
+
+constexpr uint32_t kBech32mFixed = bech32m_fixed();
+VG_TABLE Bech32mGroups BECH32M_GROUPS = bech32m_groups();
+
+VG_FN uint32_t bech32m_p2tr_checksum(const uint32_t x[8]) {
+  uint32_t chk = kBech32mFixed;
+#pragma unroll
+  for (int g = 0; g < 52; g++)
+    chk ^= VG_LDG(BECH32M_GROUPS.t + 32 * g + bech32m_group(x, g));
+  return chk;
 }
 
 }  // namespace vg

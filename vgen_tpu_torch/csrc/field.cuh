@@ -16,9 +16,18 @@
 #ifdef __CUDACC__
 #define VG_FN __device__ __forceinline__
 #define VG_CONSTANT __constant__
+// a table the compiler builds (constexpr) into device memory, read through
+// the read-only cache (VG_LDG) by lanes that index it at run time
+#define VG_TABLE __device__ const
+// a constexpr function the compiler runs for such a table
+#define VG_HD __host__ __device__
+#define VG_LDG(p) __ldg(p)
 #else
 #define VG_FN inline
 #define VG_CONSTANT static const
+#define VG_TABLE static constexpr
+#define VG_HD
+#define VG_LDG(p) (*(p))
 #endif
 
 namespace vg {

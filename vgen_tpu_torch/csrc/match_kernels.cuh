@@ -81,39 +81,6 @@ __global__ void __launch_bounds__(kMatchThreads)
   }
 }
 
-// The largest narrow table (S * width uint16 entries and S uint8 accept
-// flags) that kernel D's shared form copies into shared memory: under the
-// 48 KB a block takes without opting in.  Which form the product takes
-// for a table is the wrapper's choice (vgen_tpu_torch/ops/fused.py
-// dfa_form).
-constexpr int kDfaSharedMax = 32768;
-
-// run(dfa) with kernel D's table as its lanes read it.  kShared: the
-// narrow form (uint16 table, uint8 accept; width even), which the block
-// copies into s_table (n_states * width * 2 + n_states bytes of shared
-// memory) -> a DfaPlain over the copy; else the int32 table and accept
-// read through the read-only cache (Dfa).
-template <bool kShared, class Run>
-__device__ __forceinline__ void with_dfa_table(const void* table,
-                                               const void* accept,
-                                               int n_states, int width,
-                                               int start, uint32_t* s_table,
-                                               const Run& run) {
-  if constexpr (kShared) {
-    const int words = n_states * width / 2;
-    const uint32_t* g_words = (const uint32_t*)table;
-    for (int i = threadIdx.x; i < words; i += blockDim.x) s_table[i] = g_words[i];
-    uint8_t* s_accept = (uint8_t*)(s_table + words);
-    for (int i = threadIdx.x; i < n_states; i += blockDim.x)
-      s_accept[i] = ((const uint8_t*)accept)[i];
-    __syncthreads();
-    run(DfaPlain<uint16_t, uint8_t>{(const uint16_t*)s_table, s_accept, width,
-                                    start});
-  } else {
-    run(Dfa{(const int32_t*)table, (const int32_t*)accept, width, start});
-  }
-}
-
 // Kernel C: one tile of 256 lanes of window blockIdx.y per block.
 template <int kFmt>
 __global__ void __launch_bounds__(kTileLanes)
@@ -154,11 +121,6 @@ __global__ void __launch_bounds__(kTileLanes)
         single_key_tile(lane, tx, ty, inv, remaining, out, K, B, blockIdx.y,
                         blockIdx.x, threadIdx.x);
       });
-}
-
-// The tile kernels' grid: (tiles per window, K).
-inline dim3 tile_grid(int K, int B) {
-  return dim3((unsigned)((B + kTileLanes - 1) / kTileLanes), (unsigned)K);
 }
 
 // f(std::integral_constant<int, fmt>) for the first of kFmts that equals

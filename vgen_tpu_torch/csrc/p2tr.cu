@@ -53,15 +53,32 @@
 //   words) staged in shared memory.
 //
 // Kernel I, p2tr_finish_match
-//   Replaces _make_p2tr_finish_match_kernel as called through
+//   Replaces _make_p2tr_finish_match_kernel (kernel :978) as called through
 //   p2tr_finish_match_fn.
-//   Computes: qx as in H, the bech32m symbols of witness v1 (52 five-bit
-//   groups and the polymod checksum, 59 symbols) and the DFA walk of
-//   T + 1 = 60 steps -> 0/1.
-//   Bound: memory and the walk's 60 dependent table loads (read-only cache).
-//   Design: H's body with dfa.cuh's walk by table lookup, no state cap.
+//   Computes: qx as in H, the bech32m address of witness v1 (52 five-bit
+//   groups and the checksum, 59 symbols) and the DFA walk of T + 1 = 60
+//   steps -> 0/1.
+//   Bound: memory, 100 bytes read and 4 written per lane, against the
+//   field multiply and squaring, 52 table lookups and the latency of the
+//   walk's 60 dependent table loads.
+//   Design (the H100 redesign; the per-lane form, p2tr_dfa_lane, stays
+//   in the probe unit as i_lane, probes/p2tr_match_lanes.cuh): tiles of 256 lanes
+//   of one window, one per block over a (tiles per window, K) grid
+//   (p2tr_lanes.cuh p2tr_finish_tile), so no lane divides by B and a lane
+//   at or past remaining[k] loads nothing; the symbols walked in registers
+//   as they are made (dfa.cuh bech32m_p2tr_walk: no per-thread array);
+//   the checksum a XOR of 52 independent table lookups (encode.cuh
+//   bech32m_p2tr_checksum), where the polymod's chain of 58 dependent
+//   steps took 0.246 of 0.452 ms (NVIDIA H100 80GB HBM3, 700 W; python -m
+//   vgen_tpu_torch.probes.profile_p2tr_match); the table in kernel D's
+//   two forms (dfa.cuh with_dfa_table), the narrow one copied into shared
+//   memory where the wrapper chooses it (vgen_tpu_torch/ops/fused.py
+//   dfa_form, up to the form's cap for I), else the int32 one through the
+//   read-only cache; no state cap.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "inv_block.cuh"
 #include "p2tr_lanes.cuh"
@@ -142,17 +159,26 @@ __global__ void __launch_bounds__(kThreads)
                                N, e);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    finish_match_kernel(const uint32_t* __restrict__ X, const uint32_t* __restrict__ Z,
-                        const uint32_t* __restrict__ zi, const int32_t* __restrict__ ok,
-                        const int32_t* __restrict__ table,
-                        const int32_t* __restrict__ accept, int width, int start,
-                        const int32_t* __restrict__ remaining,
-                        int32_t* __restrict__ out, long B, long N) {
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= N) return;
-  const vg::Dfa dfa{table, accept, width, start};
-  out[e] = vg::p2tr_dfa_lane(X, Z, zi, ok, dfa, remaining, B, N, e);
+// Kernel I: one tile of 256 lanes of window blockIdx.y per block, the
+// table in form kShared (with_dfa_table).
+template <bool kShared>
+__global__ void __launch_bounds__(vg::kTileLanes)
+    finish_match_tile_kernel(const uint32_t* __restrict__ X,
+                             const uint32_t* __restrict__ Z,
+                             const uint32_t* __restrict__ zi,
+                             const int32_t* __restrict__ ok,
+                             const void* __restrict__ table,
+                             const void* __restrict__ accept, int n_states,
+                             int width, int start,
+                             const int32_t* __restrict__ remaining,
+                             int32_t* __restrict__ out, int K, int B) {
+  extern __shared__ __align__(16) uint32_t s_table[];
+  vg::with_dfa_table<kShared>(
+      table, accept, n_states, width, start, s_table, [&](const auto& dfa) {
+        using D = std::decay_t<decltype(dfa)>;
+        vg::p2tr_finish_tile(vg::Bech32mWalk<D>{dfa}, X, Z, zi, ok, remaining,
+                             out, K, B, blockIdx.y, blockIdx.x, threadIdx.x);
+      });
 }
 
 }  // namespace
@@ -222,17 +248,26 @@ int vgen_p2tr_finish_range(const void* X, const void* Z, const void* zi,
   return (int)cudaGetLastError();
 }
 
-// Kernel I.  X, Z, zi, ok, remaining as kernel H; table (S, width) and
-// accept (S,) int32, width 34 -> out (K, B) 0/1.
-int vgen_p2tr_finish_match(const void* X, const void* Z, const void* zi,
-                           const void* ok, const void* table, const void* accept,
-                           int width, int start, const void* remaining, void* out,
-                           int K, int B, void* stream) {
-  const long N = (long)K * B;
-  finish_match_kernel<<<blocks_for(N), kThreads, 0, (cudaStream_t)stream>>>(
+// Kernel I.  X, Z, zi, ok, remaining as kernel H.  shared: table
+// (n_states, width) uint16 and accept (n_states,) uint8, at most
+// vg::kDfaSharedMax bytes together, width even; else both int32; width 34
+// -> out (K, B) 0/1.
+int vgen_p2tr_finish_match(int shared, const void* X, const void* Z,
+                           const void* zi, const void* ok, const void* table,
+                           const void* accept, int n_states, int width,
+                           int start, const void* remaining, void* out, int K,
+                           int B, void* stream) {
+  const long table_bytes = (long)n_states * width * 2 + n_states;
+  if (shared && (width % 2 || table_bytes > vg::kDfaSharedMax))
+    return (int)cudaErrorInvalidValue;
+  if ((long)K * B == 0) return 0;
+  const auto kernel =
+      shared ? finish_match_tile_kernel<true> : finish_match_tile_kernel<false>;
+  kernel<<<vg::tile_grid(K, B), vg::kTileLanes, shared ? (int)table_bytes : 0,
+           (cudaStream_t)stream>>>(
       (const uint32_t*)X, (const uint32_t*)Z, (const uint32_t*)zi,
-      (const int32_t*)ok, (const int32_t*)table, (const int32_t*)accept, width,
-      start, (const int32_t*)remaining, (int32_t*)out, (long)B, N);
+      (const int32_t*)ok, table, accept, n_states, width, start,
+      (const int32_t*)remaining, (int32_t*)out, K, B);
   return (int)cudaGetLastError();
 }
 

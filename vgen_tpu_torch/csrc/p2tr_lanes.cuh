@@ -1,6 +1,7 @@
 // Per-thread bodies of the P2TR kernels F, G, H and I (p2tr.cu launches
-// them).  Like the other headers this compiles as plain C++ too, so the
-// arithmetic can be driven from a host compiler.
+// them; kernel I's tiles are p2tr_finish_tile over Bech32mWalk).  Like the
+// other headers this compiles as plain C++ too, so the arithmetic can be
+// driven from a host compiler.
 //
 // Arrays are limb-major (8, N) uint32: limb l of element e is at l*N + e.
 // The ladder's window table for digits of kBits bits is (windows, entries,
@@ -289,18 +290,36 @@ VG_FN int32_t p2tr_range_lane(const uint32_t* X, const uint32_t* Z,
   return in_intervals<8>(w, lo, hi, n_slots) ? 1 : 0;
 }
 
-// Kernel I, lane e: 1 when the DFA accepts the bech32m address of the
-// output key; 0 where ok is 0, Z is 0 or b >= remaining[k].
-VG_FN int32_t p2tr_dfa_lane(const uint32_t* X, const uint32_t* Z,
-                            const uint32_t* zi, const int32_t* ok, const Dfa& dfa,
-                            const int32_t* remaining, long B, long N, long e) {
-  const long k = e / B, b = e - k * B;
-  if (b >= (long)remaining[k]) return 0;
+// Kernel I's match: 1 when the DFA accepts the bech32m address of the
+// output key's x, walked in registers (dfa.cuh bech32m_p2tr_walk); D is
+// Dfa or DfaPlain.
+template <class D>
+struct Bech32mWalk {
+  D dfa;
+  VG_FN int32_t operator()(const uint32_t qx[8]) const {
+    return bech32m_p2tr_walk(dfa, qx) ? 1 : 0;
+  }
+};
+
+// Kernel I, one tile per block (the P2TR counterpart of single_key_tile):
+// lane b = i * kTileLanes + t of window k, e = k * B + b, reads its X, Z,
+// zi and ok rows and gets match(qx) where b < min(remaining[k], B), ok[e]
+// and Z != 0; 0 elsewhere below B; a lane past B writes nothing.  k is the
+// block's, so no lane divides by B, and a lane at or past remaining[k]
+// loads nothing.
+template <class Match>
+VG_FN void p2tr_finish_tile(const Match& match, const uint32_t* X,
+                            const uint32_t* Z, const uint32_t* zi,
+                            const int32_t* ok, const int32_t* remaining,
+                            int32_t* out, int K, int B, int k, int i, int t) {
+  const int b = i * kTileLanes + t;
+  if (b >= B) return;
+  const long e = (long)k * B + b;
+  int32_t r = 0;
   uint32_t qx[8];
-  if (!p2tr_qx(qx, X, Z, zi, ok, N, e)) return 0;
-  uint8_t syms[kBech32mSyms];
-  bech32m_p2tr_symbols(syms, qx);
-  return dfa_walk(dfa, syms, kBech32mSyms, kBech32mSyms) ? 1 : 0;
+  if (b < remaining[k] && p2tr_qx(qx, X, Z, zi, ok, (long)K * B, e))
+    r = match(qx);
+  out[e] = r;
 }
 
 }  // namespace vg

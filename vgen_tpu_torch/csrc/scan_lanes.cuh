@@ -316,6 +316,13 @@ VG_FN int32_t glv_dfa_lane(const uint32_t* bx, const uint32_t* by,
 
 constexpr int kTileLanes = 256;  // a tile: lanes b0 .. b0 + 255 of one window
 
+#ifdef __CUDACC__
+// The tile kernels' grid (C, D and I): (tiles per window, K).
+inline dim3 tile_grid(int K, int B) {
+  return dim3((unsigned)((B + kTileLanes - 1) / kTileLanes), (unsigned)K);
+}
+#endif
+
 // Where a lane's rows are read: tx, ty and inv as three columns, tx and
 // ty of stride ``stride``, inv of ``inv_stride`` (device memory: B and
 // K * B from the lane's own column; the probe unit's prefetch stage

@@ -338,16 +338,18 @@ def glv_dfa_match_plain(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept,
     return torch.where(valid, mask, 0).to(torch.int32)
 
 
-# Kernel D's table forms (csrc/match_kernels.cuh): "shared", the narrow
-# table (uint16 entries, uint8 accept flags) copied into each block's
-# shared memory, for a table of at most DFA_SHARED_MAX bytes; "global", the
-# int32 table through the read-only cache, for any.  The product takes the
-# shared form up to DFA_SHARED_BUDGET bytes, at every width: it read 1.8-5%
-# faster than the global form on [Cc]at for the Base58Check formats and
-# P2WPKH, a tie for Ethereum, up to 0.7% faster at 128 states (15.5 KB)
-# and 1% slower at 270 (32 KB) (``python -m
-# vgen_tpu_torch.probes.profile_dfa``, two runs, NVIDIA H100 80GB HBM3,
-# 700 W; PERF.md)
+# Kernel D's and I's table forms (csrc/dfa.cuh with_dfa_table): "shared",
+# the narrow table (uint16 entries, uint8 accept flags) copied into each
+# block's shared memory, for a table of at most DFA_SHARED_MAX bytes;
+# "global", the int32 table through the read-only cache, for any.  Both
+# kernels take the shared form up to DFA_SHARED_BUDGET bytes, at every
+# width: D read 1.8-5% faster than the global form on [Cc]at for the
+# Base58Check formats and P2WPKH, a tie for Ethereum, up to 0.7% faster
+# at 128 states (15.5 KB) and 1% slower at 270 (32 KB) (``python -m
+# vgen_tpu_torch.probes.profile_dfa``, two runs); I read 0.71-0.81 of the
+# global form's time up to 237 states (16 KB) at width 34 (``python -m
+# vgen_tpu_torch.probes.profile_p2tr_match``, two runs; NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md)
 DFA_SHARED_MAX = 32768
 DFA_SHARED_BUDGET = 16384
 DFA_FORMS = ("shared", "global")
@@ -359,8 +361,9 @@ def _narrow_bytes(n_states: int, width: int) -> int:
 
 
 def dfa_form(n_states: int, width: int) -> str:
-    """The table form kernel D takes for an (n_states, width) DFA: shared
-    where its narrow form fits DFA_SHARED_BUDGET bytes, else global."""
+    """The table form kernels D and I take for an (n_states, width) DFA:
+    shared where its narrow form fits DFA_SHARED_BUDGET bytes, else
+    global."""
     fits = _narrow_bytes(n_states, width) <= DFA_SHARED_BUDGET
     return "shared" if fits and n_states <= NARROW_MAX_STATES else "global"
 
@@ -414,6 +417,34 @@ def _launch_glv_dfa(fmt, args):
     return out
 
 
+def _table_form(entry: str, dfa_table, dfa_accept, narrow, form, dev):
+    """Kernel D's or I's table form and the tensors it reads ->
+    (table, accept, form): ``form`` or ``dfa_form``'s choice ("shared"
+    raises for a table over DFA_SHARED_MAX bytes); the shared
+    form reads ``narrow`` (the table's ``narrow_dfa``) or builds it."""
+    S, W = dfa_table.shape
+    if form is None:
+        form = dfa_form(S, W)
+    elif form not in DFA_FORMS:
+        raise ValueError(f"{entry}: table form {form!r}, expected one of "
+                         f"{DFA_FORMS}")
+    elif form == "shared" and _narrow_bytes(S, W) > DFA_SHARED_MAX:
+        raise ValueError(f"{entry}: a ({S}, {W}) table is over the shared "
+                         f"form's {DFA_SHARED_MAX} bytes")
+    if form == "global":
+        return dfa_table, dfa_accept, form
+    table, accept = narrow if narrow is not None else narrow_dfa(
+        dfa_table, dfa_accept)
+    for arg, t, dtype, shape in (("narrow table", table, torch.int16, (S, W)),
+                                 ("narrow accept", accept, torch.uint8,
+                                  (S,))):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.data_ptr() % 4):
+            raise ValueError(f"{entry}: {arg} must be a contiguous, 4-byte "
+                             f"aligned {shape} {dtype} tensor on {dev}")
+    return table, accept, form
+
+
 def _launch_dfa_match(fmt, args, narrow, form):
     """Check kernel D's inputs, choose its table form and launch it ->
     ((K, B) int32, the form)."""
@@ -421,29 +452,8 @@ def _launch_dfa_match(fmt, args, narrow, form):
     bx, by, tx, ty, inv, dfa_table, dfa_accept, start, remaining = args
     K, B = bx.shape[0], tx.shape[1]
     S, W = dfa_table.shape
-    if form is None:
-        form = dfa_form(S, W)
-    elif form not in DFA_FORMS:
-        raise ValueError(f"dfa_match: table form {form!r}, expected one of "
-                         f"{DFA_FORMS}")
-    elif form == "shared" and _narrow_bytes(S, W) > DFA_SHARED_MAX:
-        raise ValueError(f"dfa_match: a ({S}, {W}) table is over the shared "
-                         f"form's {DFA_SHARED_MAX} bytes")
-    if form == "shared":
-        table, accept = narrow if narrow is not None else narrow_dfa(
-            dfa_table, dfa_accept)
-        for arg, t, dtype, shape in (("narrow table", table, torch.int16,
-                                      (S, W)),
-                                     ("narrow accept", accept, torch.uint8,
-                                      (S,))):
-            if (t.device != dev or t.dtype != dtype
-                    or tuple(t.shape) != shape or not t.is_contiguous()
-                    or t.data_ptr() % 4):
-                raise ValueError(f"dfa_match: {arg} must be a contiguous, "
-                                 f"4-byte aligned {shape} {dtype} tensor on "
-                                 f"{dev}")
-    else:
-        table, accept = dfa_table, dfa_accept
+    table, accept, form = _table_form("dfa_match", dfa_table, dfa_accept,
+                                      narrow, form, dev)
     out = torch.empty((K, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch("kernels", "dfa_match", int(form == "shared"), bx.data_ptr(),
@@ -544,7 +554,8 @@ def _dfa_mask(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start, remaining,
     check_format(fmt)
     if fmt == AddressFormat.P2TR:
         return fused_p2tr_scan_mask_step(bx, by, tx, ty, dfa_table,
-                                         dfa_accept, start, remaining, wt)
+                                         dfa_accept, start, remaining, wt,
+                                         narrow)
     inv = batch_inverse_dx(bx, tx)
     if glv:
         return glv_dfa_match(fmt, bx, by, tx, ty, inv, dfa_table, dfa_accept,
@@ -577,10 +588,11 @@ def fused_scan_step(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start,
     """One super-step of the DFA scan: bx, by (K, 8); tx, ty (8, B);
     dfa_table (S, W), dfa_accept (S,) int32; start int; remaining (K,) ->
     (K, 34) int32 packed rows.  glv: kernel E and six keys per position
-    (random scans), else kernel D and one (range scans; ``narrow`` is the
-    table's ``narrow_dfa``, or None to build it where kernel D takes the
-    shared form).  P2TR takes the window table wt and runs kernels A, F, G,
-    I, one key per position (``fused_p2tr_scan_step``)."""
+    (random scans), else kernel D and one (range scans).  P2TR takes the
+    window table wt and runs kernels A, F, G, I, one key per position
+    (``fused_p2tr_scan_step``).  ``narrow`` is the table's ``narrow_dfa``
+    for kernel D or I, or None to build it where the kernel takes the
+    shared form."""
     mask = _dfa_mask(fmt, bx, by, tx, ty, dfa_table, dfa_accept, start,
                      remaining, glv, wt, narrow)
     return pack_tail(mask, remaining, _keys_per_position(fmt, glv))
@@ -879,9 +891,15 @@ def p2tr_finish_range(X, Z, zi, ok, lo, hi, remaining):
 p2tr_finish_range.launches = 0
 
 
-def p2tr_finish_match(X, Z, zi, ok, dfa_table, dfa_accept, start, remaining):
+def p2tr_finish_match(X, Z, zi, ok, dfa_table, dfa_accept, start, remaining,
+                      narrow=None, form=None):
     """Kernel I (``csrc/p2tr.cu``): same contract as
-    ``p2tr_finish_match_plain``, one launch for all K*B lanes."""
+    ``p2tr_finish_match_plain``, one launch for all K*B lanes.  The table
+    form is ``dfa_form``'s, as kernel D's (``form`` forces one,
+    "shared" raising for a table over DFA_SHARED_MAX bytes); the shared
+    form reads ``narrow``, the table's ``narrow_dfa`` (the scanner builds
+    it once per pattern), or builds it.  ``p2tr_finish_match.launches``
+    counts launches, ``p2tr_finish_match.forms`` those of each form."""
     tensors = (X, Z, zi, ok, dfa_table, dfa_accept, remaining)
     if _all_cpu(*tensors):
         return p2tr_finish_match_plain(X, Z, zi, ok, dfa_table, dfa_accept,
@@ -896,17 +914,21 @@ def p2tr_finish_match(X, Z, zi, ok, dfa_table, dfa_accept, start, remaining):
     dev, K, B = _finish_specs(
         "p2tr_finish_match", X, Z, zi, ok, remaining,
         [("dfa_table", dfa_table, (S, W)), ("dfa_accept", dfa_accept, (S,))])
+    table, accept, used = _table_form("p2tr_finish_match", dfa_table,
+                                      dfa_accept, narrow, form, dev)
     out = torch.empty((K, B), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _launch("p2tr", "p2tr_finish_match", X.data_ptr(), Z.data_ptr(),
-                zi.data_ptr(), ok.data_ptr(), dfa_table.data_ptr(),
-                dfa_accept.data_ptr(), W, int(start), remaining.data_ptr(),
-                out.data_ptr(), K, B, _stream(dev))
+        _launch("p2tr", "p2tr_finish_match", int(used == "shared"),
+                X.data_ptr(), Z.data_ptr(), zi.data_ptr(), ok.data_ptr(),
+                table.data_ptr(), accept.data_ptr(), S, W, int(start),
+                remaining.data_ptr(), out.data_ptr(), K, B, _stream(dev))
     p2tr_finish_match.launches += 1
+    p2tr_finish_match.forms[used] += 1
     return out
 
 
 p2tr_finish_match.launches = 0
+p2tr_finish_match.forms = dict.fromkeys(DFA_FORMS, 0)
 
 
 def _p2tr_ladder_zi(bx, by, tx, ty, wt):
@@ -938,18 +960,19 @@ def fused_p2tr_range_scan_step(bx, by, tx, ty, lo, hi, remaining, wt):
 
 
 def fused_p2tr_scan_mask_step(bx, by, tx, ty, dfa_table, dfa_accept, start,
-                              remaining, wt):
+                              remaining, wt, narrow=None):
     """Kernels A, F, G, I: bx, by (K, 8); tx, ty (8, B); dfa_table (S, 34),
-    dfa_accept (S,) int32; start int; remaining (K,); wt -> (K, B) int32
-    0/1 masks (overflow recovery)."""
+    dfa_accept (S,) int32; start int; remaining (K,); wt; narrow the
+    table's ``narrow_dfa`` or None (kernel I builds it where it takes the
+    shared form) -> (K, B) int32 0/1 masks (overflow recovery)."""
     X, Z, zi, ok = _p2tr_ladder_zi(bx, by, tx, ty, wt)
     return p2tr_finish_match(X, Z, zi, ok, dfa_table, dfa_accept, start,
-                             remaining)
+                             remaining, narrow=narrow)
 
 
 def fused_p2tr_scan_step(bx, by, tx, ty, dfa_table, dfa_accept, start,
-                         remaining, wt):
+                         remaining, wt, narrow=None):
     """One super-step of the P2TR DFA scan -> (K, 34) int32 packed rows."""
     mask = fused_p2tr_scan_mask_step(bx, by, tx, ty, dfa_table, dfa_accept,
-                                     start, remaining, wt)
+                                     start, remaining, wt, narrow)
     return pack_tail(mask, remaining, 1)

@@ -61,6 +61,9 @@ The counts, per lane:
 - kernel D's Base58Check walk (``B58_WALK``): the checksum, the 49
   divisions, 34 compares for the leading-zero count, 34 digit splits and
   the 35 steps;
+- kernel I's bech32m walk (``BECH32M_WALK``): the checksum as 52 table
+  lookups of the program's five-bit groups (``BECH32M_CHECKSUM``), the
+  checksum's 6 groups and the 60 steps;
 - an interval compare of W words against S slots: a subtract with borrow
   per word against lo and against hi, and one combine, per slot;
 - the column form of the multiply: the 8x8 product's halves into 16
@@ -211,14 +214,22 @@ B58_WALK = B58_CHECKSUM + B58_LIMBS + ops(0, 0, 34 * 5) + 35 * DFA_STEP
 TAGGED = sha256_ops(range(8, 16))
 # one lean Jacobian add (8M + 3S): six subtractions and 2V as an addition
 LEAN_ADD = 8 * FE_MUL + 3 * FE_SQR + 7 * FE_ADD
-# bech32m of a P2TR key: 58 five-bit groups (2 each: the witness
-# program's 52 and the checksum's 6) and 58 polymod steps on them (12
-# each: shift, mask, the symbol's XOR and five conditional XORs of 2, the
-# XORs ALU-only; the human-readable part and the witness version fold to
-# constants)
-BECH32M = ops(0, 58 * 6, 58 * (2 + 12))
-# bech32 of a P2WPKH key as BECH32M counts it: 38 groups (the program's 32,
-# the checksum's 6) and 38 polymod steps
+# bech32m's checksum of a P2TR key as kernel I computes it
+# (csrc/encode.cuh bech32m_p2tr_checksum: the polymod is linear, so the
+# checksum is a XOR of one table entry per group): the program's 52
+# five-bit groups (a funnel shift and a mask, ALU-only), a load each, and
+# their XOR as three-input XORs (the constant folded in)
+BECH32M_CHECKSUM = ops(0, 52 * 2 + 26, 52 * 2 + 52 + 26)
+# kernel I's walk (csrc/dfa.cuh bech32m_p2tr_walk): the checksum, its 6
+# groups (a shift and a mask) and 60 steps (the witness version, 52
+# groups, 6 checksum symbols, the end of the string)
+BECH32M_WALK = BECH32M_CHECKSUM + ops(0, 12, 12) + 60 * DFA_STEP
+# kernels H and I's output key x: qx = X * zi^2
+P2TR_QX = FE_MUL + FE_SQR
+# bech32 of a P2WPKH key: 38 five-bit groups (2 each: the program's 32 and
+# the checksum's 6) and 38 polymod steps on them (12 each: shift, mask,
+# the symbol's XOR and five conditional XORs of 2, the XORs ALU-only; the
+# human-readable part and the witness version fold to constants)
 BECH32 = ops(0, 38 * 6, 38 * (2 + 12))
 # the full affine finish of kernels C and D: lambda = (ty - by) inv, x =
 # lambda^2 - bx - tx, y = lambda (bx - x) - by

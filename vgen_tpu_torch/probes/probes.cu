@@ -1,4 +1,4 @@
-// The eight probe kernels, for the measurement tools of
+// The nine probe kernels, for the measurement tools of
 // vgen_tpu_torch/probes (never launched by a scan).  They replace the
 // TPU probes of scripts/:
 //
@@ -23,7 +23,14 @@
 //   product's tiles cut after a stage, for profile_dfa.py, which also
 //   launches C and D over the persistent tile loop (probe_range_tiles,
 //   probe_dfa_tiles), D with kernel E's symbol arrays, and C and D on the
-//   per-lane grid (match_kernels.cuh interval_kernel, dfa_kernel).
+//   per-lane grid (match_kernels.cuh interval_kernel, dfa_kernel);
+// - probe_p2tr_match<kMode, kShared>: no TPU probe; kernel I's lane over
+//   the product's tiles cut after a stage (qx, the bech32m checksum by
+//   table lookups and by the polymod) or walking with the polymod's
+//   checksum or a per-thread symbol array, in either table form, for
+//   profile_p2tr_match.py, which also launches the product's walk under a
+//   minimum of 4 blocks per SM (probe_p2tr_match_bounded) and the
+//   per-lane kernel I (probe_p2tr_match_lane, the per-lane grid).
 //
 // The TPU probes timed (16, 8, 512) VMEM tiles of 16-bit limbs and
 // one-hot matmuls; here a lane is one thread on 32-bit limbs, the layout
@@ -42,6 +49,7 @@
 
 #include "geometry_lanes.cuh"
 #include "match_kernels.cuh"
+#include "p2tr_match_lanes.cuh"
 #include "single_key_lanes.cuh"
 
 namespace {
@@ -260,6 +268,84 @@ __global__ void __launch_bounds__(kTileLanes)
   const StageLane<kStage> lane{bx, by};
   single_key_tile(lane, tx, ty, inv, remaining, out, K, B, blockIdx.y,
                   blockIdx.x, threadIdx.x);
+}
+
+// Kernel I's lane cut after stage kMode, or walking in form kShared (the
+// register walk with the polymod's checksum, the product's walk, a
+// per-thread symbol array), one tile per block, as the product's kernel I.
+template <int kMode, bool kShared>
+__device__ __forceinline__ void p2tr_match_tile(
+    const uint32_t* __restrict__ X, const uint32_t* __restrict__ Z,
+    const uint32_t* __restrict__ zi, const int32_t* __restrict__ ok,
+    const void* __restrict__ table, const void* __restrict__ accept,
+    int n_states, int width, int start, const int32_t* __restrict__ remaining,
+    int32_t* __restrict__ out, int K, int B) {
+  extern __shared__ __align__(16) uint32_t s_table[];
+  if constexpr (kMode == kPmQx || kMode == kPmChecksum ||
+                kMode == kPmPolymod) {
+    p2tr_finish_tile(P2trStage<kMode>{}, X, Z, zi, ok, remaining, out, K, B,
+                     blockIdx.y, blockIdx.x, threadIdx.x);
+  } else {
+    with_dfa_table<kShared>(
+        table, accept, n_states, width, start, s_table, [&](const auto& dfa) {
+          using D = std::decay_t<decltype(dfa)>;
+          using Match = std::conditional_t<
+              kMode == kPmPolymodWalk, Bech32mPolymodWalk<D>,
+              std::conditional_t<kMode == kPmArrays, Bech32mArrays<D>,
+                                 Bech32mWalk<D>>>;
+          p2tr_finish_tile(Match{dfa}, X, Z, zi, ok, remaining, out, K, B,
+                           blockIdx.y, blockIdx.x, threadIdx.x);
+        });
+  }
+}
+
+template <int kMode, bool kShared>
+__global__ void __launch_bounds__(kTileLanes)
+    probe_p2tr_match(const uint32_t* __restrict__ X,
+                     const uint32_t* __restrict__ Z,
+                     const uint32_t* __restrict__ zi,
+                     const int32_t* __restrict__ ok,
+                     const void* __restrict__ table,
+                     const void* __restrict__ accept, int n_states, int width,
+                     int start, const int32_t* __restrict__ remaining,
+                     int32_t* __restrict__ out, int K, int B) {
+  p2tr_match_tile<kMode, kShared>(X, Z, zi, ok, table, accept, n_states,
+                                  width, start, remaining, out, K, B);
+}
+
+// kPmBounded: the product's kernel I with a minimum of 4 resident blocks
+// per SM (at most 64 registers a thread)
+template <bool kShared>
+__global__ void __launch_bounds__(kTileLanes, 4)
+    probe_p2tr_match_bounded(const uint32_t* __restrict__ X,
+                             const uint32_t* __restrict__ Z,
+                             const uint32_t* __restrict__ zi,
+                             const int32_t* __restrict__ ok,
+                             const void* __restrict__ table,
+                             const void* __restrict__ accept, int n_states,
+                             int width, int start,
+                             const int32_t* __restrict__ remaining,
+                             int32_t* __restrict__ out, int K, int B) {
+  p2tr_match_tile<kPmBounded, kShared>(X, Z, zi, ok, table, accept, n_states,
+                                       width, start, remaining, out, K, B);
+}
+
+// The per-lane kernel I (kPmLane): one thread per lane over N / 256 blocks,
+// k = e / B, the symbols in a per-thread array, the int32 table through
+// the read-only cache (p2tr_match_lanes.cuh p2tr_dfa_lane).
+__global__ void __launch_bounds__(kTileLanes)
+    probe_p2tr_match_lane(const uint32_t* __restrict__ X,
+                          const uint32_t* __restrict__ Z,
+                          const uint32_t* __restrict__ zi,
+                          const int32_t* __restrict__ ok,
+                          const int32_t* __restrict__ table,
+                          const int32_t* __restrict__ accept, int width,
+                          int start, const int32_t* __restrict__ remaining,
+                          int32_t* __restrict__ out, long B, long N) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N) return;
+  const Dfa dfa{table, accept, width, start};
+  out[e] = p2tr_dfa_lane(X, Z, zi, ok, dfa, remaining, B, N, e);
 }
 
 // Launch a tile kernel over K windows of B lanes under schedule kSchedule
@@ -516,6 +602,50 @@ int launch_single_key(int mode, int fmt, int shared, const void* bx,
   });
 }
 
+// Kernel I's contract (csrc/p2tr.cu vgen_p2tr_finish_match), by mode
+// (p2tr_match_lanes.cuh P2trMatchMode): X, Z, zi (8, K*B), ok (K*B,),
+// remaining (K,); the tile walks the narrow table (uint16 table, uint8
+// accept, n_states x width) where shared, else the int32 one, as kPmLane
+// always; the stages read no table and take no shared form.
+int launch_p2tr_match(int mode, int shared, const void* X, const void* Z,
+                      const void* zi, const void* ok, const void* table,
+                      const void* accept, int n_states, int width, int start,
+                      const void* remaining, void* out, int K, int B,
+                      void* stream) {
+  const int table_bytes = n_states * width * 2 + n_states;
+  const bool walks = mode >= kPmPolymodWalk && mode <= kPmArrays;
+  if (shared && (!walks || width % 2 || table_bytes > kDfaSharedMax))
+    return (int)cudaErrorInvalidValue;
+  using Rows = const uint32_t*;
+  if (mode == kPmLane) {
+    const long N = (long)K * B;
+    if (N == 0) return 0;
+    probe_p2tr_match_lane<<<(unsigned)((N + kTileLanes - 1) / kTileLanes),
+                            kTileLanes, 0, (cudaStream_t)stream>>>(
+        (Rows)X, (Rows)Z, (Rows)zi, (const int32_t*)ok, (const int32_t*)table,
+        (const int32_t*)accept, width, start, (const int32_t*)remaining,
+        (int32_t*)out, (long)B, N);
+    return (int)cudaGetLastError();
+  }
+  const auto go = [&](auto kernel) {
+    return launch_tiles<kTileGrid>(
+        kernel, shared ? table_bytes : 0, K, B, stream, (Rows)X, (Rows)Z,
+        (Rows)zi, (const int32_t*)ok, table, accept, n_states, width, start,
+        (const int32_t*)remaining, (int32_t*)out, K, B);
+  };
+  return dispatch<0, kPmLane>(mode, [&](auto m) {
+    constexpr int kM = decltype(m)::value;
+    constexpr bool kWalks = kM >= kPmPolymodWalk && kM <= kPmArrays;
+    if constexpr (kM == kPmBounded) {
+      return shared ? go(probe_p2tr_match_bounded<true>)
+                    : go(probe_p2tr_match_bounded<false>);
+    } else {
+      return shared ? go(probe_p2tr_match<kM, kWalks>)
+                    : go(probe_p2tr_match<kM, false>);
+    }
+  });
+}
+
 // Blocks of the product's kernel D (P2PKH) resident per SM: the shared
 // form with a table of table_bytes, or the int32 one; or minus the
 // cudaError.  What the shared-memory budget costs in occupancy.
@@ -534,7 +664,7 @@ int dfa_blocks_per_sm(int shared, int table_bytes) {
 
 // C entry points.  probe_primitive, probe_issue, probe_fieldmul: a, b, out
 // (8, n) uint32 limb-major on the card; the DFA table (64, W) int32 (read
-// by the dfachar instances only).  The other four: see their launchers
+// by the dfachar instances only).  The others: see their launchers
 // above.  Each launches on the caller's stream and returns
 // cudaGetLastError().
 extern "C" {
@@ -597,6 +727,16 @@ int vgen_probe_single_key(int mode, int fmt, int shared, const void* bx,
   return launch_single_key(mode, fmt, shared, bx, by, tx, ty, inv, lo, hi,
                            n_slots, table, accept, n_states, width, start,
                            remaining, out, K, B, stream);
+}
+
+int vgen_probe_p2tr_match(int mode, int shared, const void* X, const void* Z,
+                          const void* zi, const void* ok, const void* table,
+                          const void* accept, int n_states, int width,
+                          int start, const void* remaining, void* out, int K,
+                          int B, void* stream) {
+  return launch_p2tr_match(mode, shared, X, Z, zi, ok, table, accept,
+                           n_states, width, start, remaining, out, K, B,
+                           stream);
 }
 
 int vgen_probe_dfa_blocks_per_sm(int shared, int table_bytes) {

@@ -80,7 +80,6 @@ B58_WIDTH = pipeline.FORMAT_DFA_WIDTH[P2PKH]
 BUDGET_STATES = fused.DFA_SHARED_MAX // (2 * B58_WIDTH + 1)
 RANDOM_STATES = (16, 64, 128, BUDGET_STATES, 4 * BUDGET_STATES)
 B58_POW5 = 58 ** 5
-ROUNDS = 5  # alternating rounds of the kernels timed in turns
 # (interval pattern, DFA pattern) of each hash format's turns
 TURN_PATTERNS = {
     P2PKH: (INTERVAL_PATTERN, DFA_PATTERN),
@@ -298,20 +297,6 @@ def _shared_fits(table) -> bool:
     return S * (2 * W + 1) <= fused.DFA_SHARED_MAX
 
 
-def _in_turns(turns, tag):
-    """Five alternating rounds (forward, then backward) of the named
-    calls -> {name: median ms}, each reading printed."""
-    readings = {name: [] for name in turns}
-    for r in range(ROUNDS):
-        for name in (list(turns) if r % 2 == 0 else list(turns)[::-1]):
-            readings[name].append(timing.launch_ms(turns[name]))
-    med = {name: float(np.median(v)) for name, v in readings.items()}
-    for name, v in readings.items():
-        print(f"in turns, {name}: median {med[name]:.4f} ms of "
-              f"{', '.join(f'{x:.4f}' for x in v)} {tag}", flush=True)
-    return med
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m vgen_tpu_torch.probes.profile_dfa",
@@ -370,7 +355,7 @@ def main(argv=None) -> int:
         nar_d = fused.narrow_dfa(*d[:2]) if len(forms) == 2 else None
         outs = {form: fused.dfa_match(P2PKH, *lanes[:5], *d, rem, form=form,
                                       narrow=nar_d) for form in forms}
-        med = _in_turns({f"dfa_match[{form}] on {what}": (
+        med = timing.in_turns({f"dfa_match[{form}] on {what}": (
             lambda f=form: fused.dfa_match(P2PKH, *lanes[:5], *d, rem,
                                            form=f, narrow=nar_d))
             for form in forms}, tag)
@@ -427,7 +412,7 @@ def main(argv=None) -> int:
             lambda f=fmt, d=dfa_f, n=nar_f, form=form: fused.dfa_match(
                 f, *lanes[:5], *d, rem, form=form, narrow=n))
             for form in fused.DFA_FORMS})
-    med = _in_turns(turns, tag)
+    med = timing.in_turns(turns, tag)
 
     def product_d(f):
         return med[f"D {product_form[f]} {f.value}"]

@@ -112,7 +112,11 @@ def _kernel_recipes():
                    "tagged": 1,
                    "leanadd": expected_adds(*fused.LADDER_WINDOW)}),
                "p2tr_finish_range": {"fe_mul": 1, SQR: 1},
-               "p2tr_finish_match": {"fe_mul": 1, SQR: 1, "dfachar60": 60}}
+               # kernel I walks its table in shared memory (dfachar60s) or,
+               # in the global form, through the read-only cache
+               "p2tr_finish_match": {"fe_mul": 1, SQR: 1, "dfachar60s": 60},
+               "p2tr_finish_match[global]": {"fe_mul": 1, SQR: 1,
+                                             "dfachar60": 60}}
     for f, value in _VALUE.items():
         sfx = "" if f == "p2pkh" else f"[{f}]"
         glv = _GLV_FINISH_XY if f in ("p2pkh-uncompressed", "ethereum") \

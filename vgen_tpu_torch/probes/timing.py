@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import re
+import statistics
 import subprocess
 import threading
 import time
@@ -117,6 +118,22 @@ def launch_ms(fn: Callable[[], object], reps: int = 10) -> float:
                for _ in range(5)) / reps
 
 
+def in_turns(turns: Dict[str, Callable[[], object]], tag: str,
+             rounds: int = 5) -> Dict[str, float]:
+    """``rounds`` alternating rounds (forward, then backward) of the named
+    calls, each timed by ``launch_ms`` -> {name: median ms}, each reading
+    printed with ``tag``."""
+    readings = {name: [] for name in turns}
+    for r in range(rounds):
+        for name in (list(turns) if r % 2 == 0 else list(turns)[::-1]):
+            readings[name].append(launch_ms(turns[name]))
+    med = {name: statistics.median(v) for name, v in readings.items()}
+    for name, v in readings.items():
+        print(f"in turns, {name}: median {med[name]:.4f} ms of "
+              f"{', '.join(f'{x:.4f}' for x in v)} {tag}", flush=True)
+    return med
+
+
 def delta_ms(run: Callable[[int], object], reps: int):
     """(t(R), t(2R), t(2R) - t(R)) in ms, each the best of five
     event-timed launches after one warm-up launch, as ``measure`` takes
@@ -203,11 +220,12 @@ def loop_opcodes(sass: str) -> Counter:
 
 def template_args(kernel: str, mangled: str) -> Optional[tuple]:
     """The integer (and bool, as 0/1) template arguments of an instance of
-    the kernel template ``kernel`` from its mangled name, or None for
-    another function."""
+    the kernel template ``kernel`` from its mangled name, () for the kernel
+    ``kernel`` that is no template, or None for another function."""
     m = re.search(kernel + r"I((?:L[bi]\d+E)+)E", mangled)
-    return (tuple(int(x) for x in re.findall(r"L[bi](\d+)E", m.group(1)))
-            if m else None)
+    if m is None:
+        return () if f"{len(kernel)}{kernel}E" in mangled else None
+    return tuple(int(x) for x in re.findall(r"L[bi](\d+)E", m.group(1)))
 
 
 def kernel_loops(library: str, kernel: str) -> Dict[tuple, Counter]:

@@ -130,11 +130,12 @@ class DeviceScanner:
         table = torch.from_numpy(dfa.table.astype(np.int32)).to(dev)
         accept = torch.from_numpy(dfa.accept.astype(np.int32)).to(dev)
         start = int(dfa.start)
-        # kernel D's narrow table, once per pattern, where it takes the
-        # shared form (range scans of the hash formats)
+        # the narrow table of kernel D (range scans of the hash formats)
+        # or I (P2TR, which takes no GLV keys), once per pattern, where the
+        # kernel takes the shared form; kernel E reads the int32 table
         narrow = (fused.narrow_dfa(table, accept)
-                  if not glv and self.fmt in fused.FMT_CODE
-                  and fused.dfa_form(*table.shape) == "shared" else None)
+                  if not glv and fused.dfa_form(*table.shape) == "shared"
+                  else None)
 
         def step(bx, by, rem):
             return fused.fused_scan_step(self.fmt, bx, by, self.tx, self.ty,
