@@ -15,7 +15,10 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 4. kernel B (range_glv_match) and the pack tail against the plain versions
    on CPU: real i*G table and base points, pattern ^1C, K = 2, B = 8192;
    masks and packed rows bit-equal;
-5. the main path at full width through the CLI: ``generate -p ^1C -c 3``
+5. the first scanner's i*G table (524288 points) as a stage of its own:
+   the host build, the npz cache write and the upload, in seconds (the
+   card machine's checkout holds no cache: the cold build); then the main
+   path at full width through the CLI: ``generate -p ^1C -c 3``
    (P2PKH, B = 524288, k_sub = 8); every match re-derived by the
    vgen_tpu_torch.crypto oracle; both kernels' launch counters > 0 in that run;
 6. kernels A and B and their plain versions timed at the main path's shape
@@ -142,7 +145,30 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     shape;
 29. the range DFA rate per format: 64 whole super-steps (268,435,456
     keys) of a never-matching suffix through kernels A and D (in the form
-    its table takes), after one warm-up super-step.
+    its table takes), after one warm-up super-step;
+30. the mesh (``parallel/mesh.py`` ``MeshScanner``, B = 8192, k_sub = 2)
+    on one device slot (``["cuda:0"]``) and on two (``["cuda:0",
+    "cuda:0"]``: the card holds both devices of the mesh) against
+    DeviceScanner over the same windows and base scalars: the ^1C
+    interval route with GLV (A, B), a random DFA route (c[a4]t: A, E) and a
+    range DFA route ([Cc][a4]t, the last window partial: A, D); packed
+    rows equal, matches > 0, each kernel launched once per device slot;
+31. an NCCL process group at world size 1 (tcp://127.0.0.1, the card
+    machine has one card), then ``scan_with_progress(mesh=True)``: ^1C
+    -c 1 (A, B), P2TR ^bc1pqq -c 1 (A, F, G, H) and qq$ -c 1 (A, F, G,
+    I), each match re-derived by the oracle, phase 13's 1,048,576-key DFA
+    range with a checkpoint (A, D), whose matches equal the native
+    scanner's, and that range on ^1C -c 1 (A, C), the native scanner's
+    lowest key;
+32. the mesh's random scan of ^1BenchNeverMatches at world size 1 (B =
+    524288, k_sub = 8) under the NCCL group (an all_gather every
+    super-step) and without a group (built before phase 31: no
+    collective) against DeviceScanner's, in turns (2 s each), keys/s and
+    their ratios on one line, with the collective's share of a
+    super-step (from the two mesh rates) and the all_gather's time;
+33. ``tui.run_tui`` on the card (^1C -c 1) with a screen that records what
+    is drawn: the frames show "Device search...", "MATCH #1" and the
+    oracle-confirmed address.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Tolerance everywhere: exact (the values are integers).  The line
@@ -478,6 +504,30 @@ def main():
         f"{int((mask_c > 0).sum())} matching lanes, rows {row_c[:, :2].tolist()}")
 
     # -- 5. main path through the CLI --------------------------------------
+    # the first scanner's i*G table as a stage of its own: the host build,
+    # the npz cache write and the upload.  The card machine's checkout holds
+    # no cache, so this is the cold build the first scan would pay; the
+    # scanner below reads the cache written here.
+    B5 = sc.DEFAULT_DEVICE_BATCH
+    cached5 = os.path.exists(tables.ig_table_path(B5))
+    t0 = time.time()
+    tx16, ty16 = tables.build_ig_table_limbs(B5)
+    build5 = time.time() - t0
+    t0 = time.time()
+    os.makedirs(tables.CACHE_DIR, exist_ok=True)
+    tables._save_npz(tables.ig_table_path(B5), tx=tx16, ty=ty16)
+    write5 = time.time() - t0
+    t0 = time.time()
+    tx5, ty5 = tables.upload_ig_table(tx16, ty16, dev)
+    torch.cuda.synchronize()
+    upload5 = time.time() - t0
+    require(u256.to_ints(tx5[:, :1].cpu()) == [ec.G[0]],
+            "the i*G table's first point is not G")
+    log(f"[5] i*G table of {B5:,} points "
+        f"({2 * tx5.numel() * 4 / 2**20:.0f} MiB on the card): host build "
+        f"{build5:.2f} s, npz cache write {write5:.2f} s, upload "
+        f"{upload5:.3f} s ({'a cache was present, rebuilt' if cached5 else 'no cache: the cold build'}) on {smi}")
+    del tx5, ty5, tx16, ty16
     reset_launches()
     rows, _, secs = run_cli(["generate", "-p", "^1C", "-c", "3"])
     path_launches = {"random interval": read_launches()}
@@ -1899,6 +1949,250 @@ def main():
             f"{K * B:,} keys; launches {got}) on {smi}")
         del scanner
         torch.cuda.empty_cache()
+
+    # -- 30. mesh rows against DeviceScanner --------------------------------
+    import socket
+
+    import torch.distributed as dist
+
+    from vgen_tpu_torch import tui
+    from vgen_tpu_torch.parallel import distributed
+    from vgen_tpu_torch.parallel.mesh import MeshScanner
+
+    B30, K30 = 8192, 2
+    base30 = 0x5EED5EED5EED
+    for devs30 in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        mesh30 = MeshScanner(fmt, B30, devs30, k_sub=K30)
+        W30 = mesh30.windows
+        ref30 = sc.DeviceScanner(fmt, B30, dev, k_sub=W30)
+        # (pattern, random scan: six GLV keys a position, the kernels)
+        for src, allow_glv, kern30, rem30 in (
+                ("^1C", True, ("range_glv_match",), None),
+                ("c[a4]t", True, ("glv_dfa_match",), None),
+                ("[Cc][a4]t", False, ("dfa_match",), W30 * B30 - 1000)):
+            pat30 = Pattern(src)
+            reset_launches()
+            got30 = mesh30.drain_packed(mesh30.submit_super_batch(
+                pat30, base30, rem30, allow_glv=allow_glv))
+            got = read_launches()
+            cfg30 = ScanConfig(format=fmt, start=None if allow_glv else 1)
+            step30 = ref30._route(pat30, cfg30, glv=allow_glv)[0]
+            rems30 = ([B30] * W30 if rem30 is None else
+                      [max(0, min(B30, rem30 - j * B30)) for j in range(W30)])
+            want30 = step30(*ref30._base_points(
+                [base30 + j * B30 for j in range(W30)]),
+                ref30._remaining(rems30)).cpu().numpy()
+            require(got30.shape == want30.shape
+                    and np.array_equal(got30, want30),
+                    f"mesh {devs30} {src}: rows differ from DeviceScanner's")
+            require(int(got30[:, 0].sum()) > 0, f"mesh {devs30} {src}: no "
+                    "matching lane checks nothing")
+            require(got["batch_inverse_dx"] == len(devs30) and all(
+                got[k] == len(devs30) for k in kern30),
+                f"mesh {devs30} {src}: launches {got}")
+            log(f"[30] mesh on {devs30}, k_sub={K30}, B={B30}: {src} "
+                f"({'random' if allow_glv else 'range'}) rows == "
+                f"DeviceScanner's over {W30} windows ({int(got30[:, 0].sum())}"
+                f" matching positions); launches {got}")
+        del mesh30, ref30
+    torch.cuda.empty_cache()
+
+    # -- 31. NCCL at world size 1: the mesh through scan_with_progress --------
+    # phase 32's mesh without a process group (so without a collective),
+    # built before the group forms
+    solo32 = MeshScanner(fmt)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port31 = sock.getsockname()[1]
+    t0 = time.time()
+    require(distributed.initialize(f"127.0.0.1:{port31}", 1, 0,
+                                   device="cuda") is False
+            and dist.get_backend() == "nccl" and distributed.world_size() == 1,
+            "NCCL process group at world size 1 did not form")
+    log(f"[31] NCCL process group (tcp://127.0.0.1:{port31}, world size 1) in "
+        f"{time.time() - t0:.2f} s")
+    try:
+        for fmt31, src, count31, kern31 in (
+                (fmt, "^1C", 1, ("range_glv_match",)),
+                (p2tr, "^bc1pqq", 1, ("p2tr_ladder", "batch_inverse_chain",
+                                      "p2tr_finish_range")),
+                (p2tr, "qq$", 1, ("p2tr_ladder", "batch_inverse_chain",
+                                  "p2tr_finish_match"))):
+            reset_launches()
+            t0 = time.time()
+            res = sc.scan_with_progress(Pattern(src), ScanConfig(
+                format=fmt31, count=count31, mesh=True))
+            secs = time.time() - t0
+            got = read_launches()
+            gen31 = AddressGenerator(fmt31)
+            require(len(res.matches) == count31 and all(
+                gen31.generate(bytes.fromhex(m.hex)).address == m.address
+                and Pattern(src).matches(m.address) for m in res.matches),
+                f"mesh {fmt31.value} {src}: {res.matches}")
+            require(got["batch_inverse_dx"] > 0 and all(
+                got[k] > 0 for k in kern31), f"mesh {src}: launches {got}")
+            log(f"[31] mesh scan_with_progress {fmt31.value} {src} -c "
+                f"{count31}: {[m.address for m in res.matches]} "
+                f"oracle-confirmed in {secs:.1f} s ({res.operations:,} keys); "
+                f"launches {got}")
+        # the DFA range of phase 13 with a checkpoint: the native scanner's
+        # match set, key for key
+        with tempfile.TemporaryDirectory() as tmp:
+            path31 = os.path.join(tmp, "mesh_range.json")
+            ckpt31 = CheckpointManager(path31, pattern=src13, fmt=fmt.value,
+                                       start=start13, end=end13)
+            reset_launches()
+            t0 = time.time()
+            res = sc.scan_with_progress(Pattern(src13), ScanConfig(
+                format=fmt, start=start13, end=end13, count=0,
+                checkpoint=ckpt31, mesh=True))
+            secs = time.time() - t0
+            got = read_launches()
+            with open(path31) as f:
+                saved31 = json.load(f)
+        keys31 = sorted(int(m.hex, 16) for m in res.matches)
+        want31 = sorted(int(m.hex, 16) for m in ref13.matches)
+        require(keys31 == want31 and res.operations == end13 - start13 + 1,
+                f"mesh DFA range: {len(keys31)} matches, native "
+                f"{len(want31)}; {res.operations} operations")
+        require(all(Pattern(src13).matches(m.address) for m in res.matches),
+                "mesh DFA range: a match fails the regex")
+        require(int(saved31["next_key"], 16) == end13 + 1
+                and saved31["operations"] == res.operations,
+                f"mesh DFA range: checkpoint {saved31}")
+        require(got["batch_inverse_dx"] > 0 and got["dfa_match"] > 0
+                and got["glv_dfa_match"] == 0 and got["range_match"] == 0,
+                f"mesh DFA range: launches {got}")
+        log(f"[31] mesh range {start13:x}:{end13:x} -p {src13} -c 0 with a "
+            f"checkpoint: {len(keys31)} matches in {secs:.1f} s == native "
+            f"scanner's; checkpoint next_key {saved31['next_key']}; "
+            f"launches {got}")
+        # the same range on an interval pattern, -c 1: the native scanner's
+        # lowest key, through kernel C
+        reset_launches()
+        res = sc.scan_with_progress(Pattern("^1C"), ScanConfig(
+            format=fmt, start=start13, end=end13, count=1, mesh=True))
+        got = read_launches()
+        want31 = [int(m.hex, 16) for m in _scan_cpu(Pattern("^1C"), ScanConfig(
+            format=fmt, start=start13, end=end13, count=1, use_device=False),
+            None, None).matches]
+        require([int(m.hex, 16) for m in res.matches] == want31 and want31,
+                f"mesh interval range -c 1: {res.matches}, native {want31}")
+        require(got["range_match"] > 0 and got["range_glv_match"] == 0,
+                f"mesh interval range: launches {got}")
+        log(f"[31] mesh range {start13:x}:{end13:x} -p ^1C -c 1: "
+            f"{hex(want31[0])}, the native scanner's lowest; launches {got}")
+
+        # -- 32. the mesh against DeviceScanner, world size 1 ----------------
+        # in turns: DeviceScanner, the mesh under the NCCL group (an
+        # all_gather every super-step), the mesh without a group
+        pat32 = Pattern("^1BenchNeverMatches")
+        mesh32 = MeshScanner(fmt)
+        dev32 = sc.DeviceScanner(fmt)
+        cfg32 = ScanConfig(format=fmt, count=0, in_flight=4)
+
+        def rate32(which, secs):
+            stop = StopFlag()
+            t_0 = time.time()
+
+            def cb(ops):
+                if time.time() - t_0 >= secs:
+                    stop.set()
+
+            if which == "device":
+                res32 = dev32.scan(pat32, cfg32, cb, stop,
+                                   recover_overflow=False)
+            else:
+                res32 = (mesh32 if which == "mesh" else solo32).scan(
+                    pat32, count=0, progress_callback=cb, stop_flag=stop,
+                    in_flight=4)
+            return res32.rate()
+
+        order32 = ("device", "mesh", "solo", "solo", "mesh", "device")
+        for which in order32[:3]:
+            rate32(which, 1.0)  # warm-up: routes, tables, the first gathers
+        rates32 = {which: [] for which in order32[:3]}
+        for which in order32:
+            rates32[which].append(rate32(which, 2.0))
+        mean32 = {k: sum(v) / len(v) for k, v in rates32.items()}
+        step_ms = {k: mesh32.windows * mesh32.batch * fused.GLV_KEYS / r * 1e3
+                   for k, r in mean32.items()}
+        rows32 = torch.zeros((mesh32.windows, 34), dtype=torch.int32,
+                             device=dev)
+        gather_ms = cuda_ms(lambda: mesh32._gather(rows32), 50)
+        log(f"[32] random ^1BenchNeverMatches, B=524288, k_sub=8, world size "
+            f"1, in turns {order32}, 2.0 s each: DeviceScanner "
+            f"{mean32['device']:,.0f} keys/s {[round(r) for r in rates32['device']]}, "
+            f"mesh (NCCL all_gather every super-step) {mean32['mesh']:,.0f} "
+            f"{[round(r) for r in rates32['mesh']]}, mesh without a group "
+            f"{mean32['solo']:,.0f} {[round(r) for r in rates32['solo']]}; "
+            f"mesh / DeviceScanner {mean32['mesh'] / mean32['device']:.4f}, "
+            f"without a group {mean32['solo'] / mean32['device']:.4f}; the "
+            f"collective's share of a super-step "
+            f"{1 - step_ms['solo'] / step_ms['mesh']:.4f} ({step_ms['mesh']:.3f}"
+            f" against {step_ms['solo']:.3f} ms); 50 all_gathers of the (8, "
+            f"34) rows in a row {gather_ms:.4f} ms each; {smi}")
+        del mesh32, dev32, solo32
+        torch.cuda.empty_cache()
+
+        # -- 33. the TUI on the card ----------------------------------------
+        class Screen:
+            """A curses screen that records what is drawn."""
+
+            def __init__(self):
+                self.drawn, self.calls = [], 0
+
+            def nodelay(self, flag):
+                pass
+
+            def erase(self):
+                pass
+
+            def getmaxyx(self):
+                return (40, 120)
+
+            def addnstr(self, y, x, text, n, attr=0):
+                self.drawn.append(text)
+
+            def refresh(self):
+                pass
+
+            def getch(self):
+                self.calls += 1
+                return ord("q") if self.calls > 3000 else -1
+
+        screen = Screen()
+        saved33 = {k: getattr(tui.curses, k) for k in (
+            "wrapper", "curs_set", "start_color", "use_default_colors",
+            "init_pair", "color_pair")}
+        tui.curses.wrapper = lambda f: f(screen)
+        for k in ("curs_set", "start_color", "use_default_colors",
+                  "init_pair"):
+            setattr(tui.curses, k, lambda *a: None)
+        tui.curses.color_pair = lambda *a: 0
+        reset_launches()
+        t0 = time.time()
+        try:
+            res = tui.run_tui(Pattern("^1C"), ScanConfig(format=fmt, count=1),
+                              StopFlag(), device="cuda")
+        finally:
+            for k, v in saved33.items():
+                setattr(tui.curses, k, v)
+        secs = time.time() - t0
+        got = read_launches()
+        text33 = "\n".join(screen.drawn)
+        require(len(res.matches) == 1 and "MATCH #1" in text33
+                and res.matches[0].address in text33
+                and "Device search..." in text33, "TUI frames lack the match")
+        require(AddressGenerator(fmt).generate(bytes.fromhex(
+            res.matches[0].hex)).address == res.matches[0].address,
+            "TUI match not confirmed by the oracle")
+        require(got["range_glv_match"] > 0, f"TUI scan: launches {got}")
+        log(f"[33] run_tui ^1C -c 1 on the card: MATCH #1 "
+            f"{res.matches[0].address} drawn and oracle-confirmed in "
+            f"{secs:.1f} s ({len(screen.drawn)} strings drawn); launches {got}")
+    finally:
+        dist.destroy_process_group()
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -124,3 +124,46 @@ def test_port_cli_loads_no_module_of_the_jax_package():
     lines = out.stdout.strip().splitlines()
     assert lines[-1] == "[]"
     assert any(line.startswith('{"address": "bc1p') for line in lines)
+
+
+NEW_MODULES = ("vgen_tpu_torch/tui.py", "vgen_tpu_torch/parallel/mesh.py",
+               "vgen_tpu_torch/parallel/distributed.py")
+
+
+def test_tui_and_parallel_import_neither_jax_nor_the_jax_package():
+    """The terminal UI and the multi-device modules: no source line imports
+    jax or vgen_tpu, and importing them loads neither."""
+    for name in NEW_MODULES:
+        text = (ROOT / name).read_text()
+        assert not IMPORT_OF_JAX_PACKAGE.search(text), name
+        assert not re.search(r"^\s*(import jax|from jax)", text, re.M), name
+        assert re.search(r"^import torch$", text, re.M), name
+    code = (
+        "import re, sys\n"
+        "import vgen_tpu_torch.tui, vgen_tpu_torch.parallel.mesh\n"
+        "import vgen_tpu_torch.parallel.distributed\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if re.match(r'(vgen_tpu|jax|jaxlib)(\\.|$)', m)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT, timeout=300)
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_tui_pieces_equal_original():
+    """``_sparkline`` on seeded rate histories (zeros, a flat run, random
+    rates, more values than the width), its characters, and ``TuiState``'s
+    defaults, against the JAX package's."""
+    from vgen_tpu import tui as jtui
+    from vgen_tpu_torch import tui
+
+    rng = np.random.default_rng(2026)
+    histories = [[], [0.0] * 5, [3.0] * 7, [0.0, 0.5, 1.0]]
+    histories += [list(rng.uniform(0, 1e9, int(n)))
+                  for n in rng.integers(1, 150, 12)]
+    for values in histories:
+        for width in (1, 5, 40, 116):
+            assert tui._sparkline(values, width) == jtui._sparkline(values,
+                                                                    width)
+    assert tui._SPARK_CHARS == jtui._SPARK_CHARS
+    assert vars(tui.TuiState()) == vars(jtui.TuiState())

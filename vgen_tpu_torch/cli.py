@@ -5,14 +5,17 @@ list-devices (alias list-gpus).
 default; with no visible card they exit with an error), on CPU tensors
 through the kernels' plain versions (``--backend cpu``), or with
 the port's copy of the native C++ scanner (``--no-device``).  Nothing falls back
-from one to another.  ``estimate`` calibrates on the card only when one is
-visible.
+from one to another.  In a terminal they run under the terminal UI
+(``tui.py``) unless ``--no-tui`` is given; only a terminal that fails
+falls back to console output.  ``estimate`` calibrates on the card only
+when one is visible.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import curses
 import json
 import os
 import signal
@@ -78,8 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
                         dest="device_batch_size", type=int, default=None,
                         help="Keys per window (default 524288)")
         sp.add_argument("--no-tui", action="store_true",
-                        help="Console output (the terminal UI is not ported "
-                        "yet)")
+                        help="Console output instead of the terminal UI")
         sp.add_argument("-o", "--output", default="text",
                         choices=["text", "json", "jsonl", "csv", "minimal"])
         sp.add_argument("--file", default=None,
@@ -319,7 +321,13 @@ def cmd_verify(args) -> int:
 
 
 def resolve_device(backend: str, no_device: bool) -> Optional[str]:
-    """The torch device to scan on, or None for the native CPU scanner."""
+    """The torch device to scan on, or None for the native CPU scanner.
+    A scan on the card first joins the process group of a multi-process
+    scan when the environment names one (``parallel/distributed.py``; it
+    raises when the group cannot form); the CPU backends never do, as in
+    the reference (``vgen_tpu/cli.py`` ``resolve_use_device``)."""
+    from vgen_tpu_torch.parallel import distributed
+
     if no_device:
         return None
     if backend == "cpu":
@@ -328,6 +336,7 @@ def resolve_device(backend: str, no_device: bool) -> Optional[str]:
         print("error: --backend cuda requested but no CUDA device is "
               "visible (use --backend cpu or --no-device)", file=sys.stderr)
         raise SystemExit(2)
+    distributed.initialize(device="cuda")
     return "cuda"
 
 
@@ -370,6 +379,21 @@ def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
         start=start, end=end, use_device=device is not None, checkpoint=ckpt,
     )
     stop = StopFlag()
+    if _use_tui(args):
+        from vgen_tpu_torch.tui import run_tui
+
+        try:
+            result = run_tui(pat, config, stop, device=device or "cpu")
+        except curses.error as e:  # the terminal failed (lib.rs:760-763)
+            print(f"TUI failed ({e}); falling back to console.",
+                  file=sys.stderr)
+            stop = StopFlag()
+        else:
+            # as the reference does, the results go through the output
+            # writers once the alternate screen has closed (lib.rs:766+)
+            _emit(_to_vanity_results(result, pattern_str, fmt), args.output,
+                  args.file, args.quiet, result)
+            return 0
     t0 = time.time()
     total = ScanResult()
     last_print = [0.0]
@@ -433,11 +457,17 @@ def _profiled(trace_dir: Optional[str], device: Optional[str], quiet: bool):
             print(f"\nProfiler trace written to {trace_dir}", file=sys.stderr)
 
 
-def _refuse_tui(args) -> None:
-    if not args.no_tui and sys.stdout.isatty():
-        raise NotImplementedError(
-            "the terminal UI is not ported (ROADMAP queue 1 item 16); "
-            "pass --no-tui")
+def _use_tui(args) -> bool:
+    return not args.no_tui and sys.stdout.isatty()
+
+
+def _refuse_repeat_under_tui(args) -> bool:
+    """The TUI runs one search (vgen_tpu/cli.py:539-542)."""
+    if _use_tui(args) and args.repeat > 1:
+        print("error: TUI mode supports a single run; use --no-tui",
+              file=sys.stderr)
+        return True
+    return False
 
 
 def cmd_generate(args) -> int:
@@ -451,8 +481,9 @@ def cmd_generate(args) -> int:
                                     AddressFormat.ETHEREUM):
         print("Warning: Bech32/Ethereum addresses case sensitivity handling is "
               "specific. -i flag might be redundant.", file=sys.stderr)
-    _refuse_tui(args)
     device = resolve_device(args.backend, args.no_device)
+    if _refuse_repeat_under_tui(args):
+        return 2
     return run_search(pattern_str, args.ignore_case, fmt, args.count,
                       device, args)
 
@@ -462,8 +493,9 @@ def cmd_range(args) -> int:
     pattern_str = args.pattern if args.pattern is not None else "."
     start, end, resolved, fmt = resolve_range_params(
         pattern_str, args.prefix_length, fmt, args.range_, args.puzzle)
-    _refuse_tui(args)
     device = resolve_device(args.backend, args.no_device)
+    if _refuse_repeat_under_tui(args):
+        return 2
     return run_search(resolved, False, fmt, args.count, device, args,
                       start=start, end=end, checkpoint_path=args.checkpoint)
 

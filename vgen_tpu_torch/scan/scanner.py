@@ -14,8 +14,10 @@ the key).  Range scans (``config.start`` set) check each key of
 The host computes one base point per window, keeps a few super-steps in
 flight (each packed result is copied into pinned host memory behind a CUDA
 event), and re-derives every reported key with the native code before it
-counts as a match.  A device failure raises: nothing falls back to the CPU
-scanner.
+counts as a match.  ``SuperStepScan`` holds that loop, which
+``parallel/mesh.py`` ``MeshScanner`` shares; ``scan_with_progress`` takes
+the mesh where ``ScanConfig.mesh`` or the auto rule says so.  A device
+failure raises: nothing falls back to the CPU scanner.
 """
 
 from __future__ import annotations
@@ -48,7 +50,196 @@ DEFAULT_K_SUB = 8
 GLV_KEYS = fused.GLV_KEYS
 
 
-class DeviceScanner:
+class SuperStepScan:
+    """The scan loop of ``DeviceScanner`` and ``parallel.mesh.MeshScanner``.
+
+    One super-step covers ``self.windows`` consecutive windows of
+    ``self.batch`` keys; window j covers keys base+1 .. base+B with base =
+    next_key - 1 + j*B.  A subclass places the windows on its devices:
+    ``_plan`` (the pattern's route and whether a device hit is a match of
+    the full pattern), ``_submit`` (launch one super-step and start its
+    (windows, 34) packed rows' copy to the host: ``_copy_to_host``),
+    ``_window_indices`` (every match of one window, for overflow
+    recovery), ``_random_start``, ``_checkpoint`` and ``_synchronize``.
+    """
+
+    fmt: AddressFormat
+    batch: int
+    windows: int
+
+    def _scan(self, pattern: Pattern, config: ScanConfig,
+              progress_callback: Optional[ProgressCallback],
+              stop_flag: Optional[StopFlag], recover_overflow: bool,
+              max_super_steps: Optional[int] = None) -> ScanResult:
+        if config.format != self.fmt:
+            raise ValueError(f"scanner built for {self.fmt.value}, config "
+                             f"asks for {config.format.value}")
+        is_range = config.start is not None
+        # GLV variants only on random scans: a range scan reports keys
+        # inside [start, end]
+        glv = not is_range and self.fmt in pipeline.GLV_FORMATS
+        mult = GLV_KEYS if glv else 1
+        route, exact = self._plan(pattern, config, glv)
+        B, W = self.batch, self.windows
+
+        gen = AddressGenerator(self.fmt)
+        matches: List[GeneratedAddress] = []
+        total_ops = 0
+        ckpt = None
+        if is_range:
+            next_key = max(config.start, 1)
+            end_key = min(config.end if config.end is not None else ec.N - 1,
+                          ec.N - 1)
+            ckpt, state = self._checkpoint(config.checkpoint)
+            if state is not None:
+                next_key = max(next_key, state["next_key"])
+                total_ops = state["operations"]
+                for key in state["match_keys"]:
+                    ga = _derive_checked(key, self.fmt, gen)
+                    if ga is not None:
+                        matches.append(ga)
+        else:
+            # one random start per scan, then consecutive windows
+            next_key = self._random_start(ec.N - 3)
+            end_key = None
+
+        t0 = time.time()
+        inflight = deque()
+        stop = stop_flag or StopFlag()
+        target = config.count if config.count > 0 else float("inf")
+        steps = 0
+
+        # a window covers keys base+1 .. base+B with base = next_key - 1, so
+        # key 1 (base 0, the point at infinity) is checked on the host
+        if is_range and next_key == 1:
+            ga = gen.generate((1).to_bytes(32, "big"))
+            total_ops += 1
+            if ga is not None and pattern.matches(ga.address):
+                matches.append(ga)
+            next_key = 2
+
+        def submit() -> bool:
+            nonlocal next_key, steps
+            if is_range and next_key > end_key:
+                return False
+            if max_super_steps is not None and steps >= max_super_steps:
+                return False
+            base_scalars = [next_key - 1 + j * B for j in range(W)]
+            # None: every window full (random scans)
+            rems = ([max(0, min(B, end_key - base)) for base in base_scalars]
+                    if is_range else None)
+            inflight.append((base_scalars, rems,
+                             self._submit(route, base_scalars, rems)))
+            steps += 1
+            nk = next_key + B * W
+            if not is_range and nk + B * (W + 1) >= ec.N:
+                # wrap: restart uniformly over the key space, leaving
+                # headroom for the next super-step
+                nk = self._random_start(ec.N - 2 - B * (W + 1))
+            next_key = nk
+            return True
+
+        def drain_one():
+            nonlocal total_ops
+            base_scalars, rems, handle = inflight.popleft()
+            arr = _host_rows(handle)
+            top_k = pipeline.TOP_K
+            cand_keys: List[int] = []
+            # device-confirmed indices so far in this super-step: each
+            # derives to at least one real match when the route is exact
+            guaranteed = 0
+            for k, base_scalar in enumerate(base_scalars):
+                count = int(arr[k, 0])
+                total_ops += int(arr[k, 1])
+                pairs = {
+                    int(i): int(b)
+                    for i, b in zip(arr[k, 2:2 + top_k],
+                                    arr[k, 2 + top_k:2 + 2 * top_k])
+                    if i >= 0
+                }
+                # the packed row holds TOP_K indices.  A range scan must
+                # report every key, so it always fetches the full window;
+                # a random scan only when the reported ones cannot reach a
+                # finite requested count (otherwise fresh windows are
+                # cheaper)
+                if count > len(pairs) and recover_overflow and (
+                        is_range or (
+                            target != float("inf")
+                            and len(matches) + len(cand_keys)
+                            + len(pairs) * mult < target)):
+                    pairs = self._window_indices(
+                        route, base_scalar, rems[k] if is_range else B)
+                # the device masks the doubling lane (key 2*base, where the
+                # table point equals the base point; its ops are already in
+                # the row's count): check that key here
+                if 1 <= base_scalar <= B and (
+                        not is_range or 2 * base_scalar <= end_key):
+                    pairs.setdefault(base_scalar - 1, 0)  # 0: all variants
+                # collect in key order while the confirmed ones cannot yet
+                # reach the target (range scans report the lowest keys)
+                if pairs and len(matches) + guaranteed < target:
+                    for idx in sorted(pairs):
+                        key0 = base_scalar + 1 + idx
+                        cand_keys.extend(
+                            ec.glv_bit_variant_keys(
+                                key0, pairs[idx], parity_exact=(
+                                    self.fmt in pipeline.GLV_EXACT_Y))
+                            if glv else [key0])
+                    if exact:
+                        guaranteed += sum(1 for b in pairs.values() if b)
+            for key, ga in _derive_checked_bulk(cand_keys, self.fmt, gen):
+                if len(matches) >= target:
+                    break
+                if ga is not None and pattern.matches(ga.address):
+                    matches.append(ga)
+            if ckpt is not None:
+                # keys up to the end of this super-step's last window are done
+                ckpt.advance(min(base_scalars[-1] + B + 1, end_key + 1),
+                             total_ops, [int(m.hex, 16) for m in matches])
+            if progress_callback:
+                progress_callback(total_ops)
+
+        while not stop.is_set() and len(matches) < target:
+            while len(inflight) < max(1, config.in_flight):
+                if not submit():
+                    break
+            if not inflight:
+                break  # range exhausted, or the super-step budget spent
+            drain_one()
+        # drain what is in flight: its matches still count
+        while inflight and len(matches) < target:
+            drain_one()
+        self._synchronize()
+        if ckpt is not None:
+            ckpt.finalize()
+        return ScanResult(
+            matches=matches[:config.count if config.count > 0 else None],
+            operations=total_ops,
+            elapsed_secs=time.time() - t0,
+        )
+
+
+def _copy_to_host(packed: torch.Tensor):
+    """(host rows, event): a CUDA tensor's copy into pinned host memory,
+    behind an event recorded on the current stream; a CPU tensor as it is,
+    with no event."""
+    if packed.device.type != "cuda":
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_rows(handle) -> np.ndarray:
+    host, done = handle
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
+class DeviceScanner(SuperStepScan):
     """The i*G table on one device, and the scan loop over it."""
 
     # expected prefilter survivors per window above which an unanchored
@@ -62,13 +253,14 @@ class DeviceScanner:
         self.fmt = fmt
         self.batch = batch_size
         self.device = torch.device(device)
-        self.k_sub = k_sub
+        self.k_sub = self.windows = k_sub
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceScanner: no CUDA device is visible")
         self.tx, self.ty = tables.ig_table(batch_size, self.device)
         # the P2TR ladder's window table, uploaded once per scanner
         self.wt = (tables.ladder_table(self.device)
                    if fmt == AddressFormat.P2TR else None)
+        self._full_remaining = self._remaining([batch_size] * k_sub)
 
     def _plan_intervals(self, pattern: Pattern, config: ScanConfig):
         """Exact intervals for an anchored literal; else the longest-prefix
@@ -149,194 +341,94 @@ class DeviceScanner:
 
         return step, mask_step, True
 
+    def _plan(self, pattern: Pattern, config: ScanConfig, glv: bool):
+        step, mask_step, exact = self._route(pattern, config, glv)
+        return (step, mask_step), exact
+
+    def _submit(self, route, base_scalars: List[int],
+                rems: Optional[List[int]]):
+        remaining = (self._full_remaining if rems is None
+                     else self._remaining(rems))
+        bx, by = self._base_points(base_scalars)
+        return _copy_to_host(route[0](bx, by, remaining))
+
+    def _window_indices(self, route, base_scalar: int, rem: int):
+        """{index: mask} of every match in one window: the packed row holds
+        only TOP_K indices."""
+        bx, by = self._base_points([base_scalar])
+        mask = route[1](bx, by, self._remaining([rem]))
+        mask = mask[0].cpu().numpy()
+        return {int(i): int(mask[i]) for i in np.nonzero(mask)[0]}
+
+    def _random_start(self, n: int) -> int:
+        return 2 + secrets.randbelow(n)
+
+    def _checkpoint(self, ckpt):
+        """(the checkpoint this scan writes, the state it resumes from)."""
+        return ckpt, (ckpt.load() if ckpt is not None else None)
+
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def scan(self, pattern: Pattern, config: ScanConfig,
              progress_callback: Optional[ProgressCallback] = None,
              stop_flag: Optional[StopFlag] = None,
              recover_overflow: bool = True) -> ScanResult:
-        if config.format != self.fmt:
-            raise ValueError(f"scanner built for {self.fmt.value}, config "
-                             f"asks for {config.format.value}")
-        is_range = config.start is not None
-        # GLV variants only on random scans: a range scan reports keys
-        # inside [start, end]
-        glv = not is_range and self.fmt in pipeline.GLV_FORMATS
-        mult = GLV_KEYS if glv else 1
-        step, mask_step, exact = self._route(pattern, config, glv)
-        B, K = self.batch, self.k_sub
-        on_cuda = self.device.type == "cuda"
-
-        gen = AddressGenerator(self.fmt)
-        matches: List[GeneratedAddress] = []
-        total_ops = 0
-        ckpt = config.checkpoint if is_range else None
-        if is_range:
-            next_key = max(config.start, 1)
-            end_key = min(config.end if config.end is not None else ec.N - 1,
-                          ec.N - 1)
-            if ckpt is not None:
-                state = ckpt.load()
-                if state is not None:
-                    next_key = max(next_key, state["next_key"])
-                    total_ops = state["operations"]
-                    for key in state["match_keys"]:
-                        ga = _derive_checked(key, self.fmt, gen)
-                        if ga is not None:
-                            matches.append(ga)
-            full_remaining = None
-        else:
-            # one random start per scan, then consecutive windows
-            next_key = 2 + secrets.randbelow(ec.N - 3)
-            end_key = None
-            full_remaining = self._remaining([B] * K)
-
-        t0 = time.time()
-        inflight = deque()
-        stop = stop_flag or StopFlag()
-        target = config.count if config.count > 0 else float("inf")
-
-        # a window covers keys base+1 .. base+B with base = next_key - 1, so
-        # key 1 (base 0, the point at infinity) is checked on the host
-        if is_range and next_key == 1:
-            ga = gen.generate((1).to_bytes(32, "big"))
-            total_ops += 1
-            if ga is not None and pattern.matches(ga.address):
-                matches.append(ga)
-            next_key = 2
-
-        def submit() -> bool:
-            nonlocal next_key
-            if is_range and next_key > end_key:
-                return False
-            # window k covers keys base+1 .. base+B, base = next_key-1+k*B
-            base_scalars = [next_key - 1 + k * B for k in range(K)]
-            if is_range:
-                rems = [max(0, min(B, end_key - base)) for base in base_scalars]
-                remaining = self._remaining(rems)
-            else:
-                rems, remaining = [B] * K, full_remaining
-            bx, by = self._base_points(base_scalars)
-            packed = step(bx, by, remaining)
-            if on_cuda:
-                host = torch.empty(packed.shape, dtype=packed.dtype,
-                                   pin_memory=True)
-                host.copy_(packed, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            else:
-                host, done = packed, None
-            inflight.append((base_scalars, rems, host, done))
-            nk = next_key + B * K
-            if not is_range and nk + B * (K + 1) >= ec.N:
-                # wrap: restart uniformly over the key space, leaving
-                # headroom for the next super-step
-                nk = 2 + secrets.randbelow(ec.N - 2 - B * (K + 1))
-            next_key = nk
-            return True
-
-        def full_window_indices(base_scalar: int, rem: int):
-            """{index: mask} of every match in one window: the packed row
-            holds only TOP_K indices."""
-            bx, by = self._base_points([base_scalar])
-            mask = mask_step(bx, by, self._remaining([rem]))
-            mask = mask[0].cpu().numpy()
-            return {int(i): int(mask[i]) for i in np.nonzero(mask)[0]}
-
-        def drain_one():
-            nonlocal total_ops
-            base_scalars, rems, host, done = inflight.popleft()
-            if done is not None:
-                done.synchronize()
-            arr = host.numpy()
-            top_k = pipeline.TOP_K
-            cand_keys: List[int] = []
-            # device-confirmed indices so far in this super-step: each
-            # derives to at least one real match when the route is exact
-            guaranteed = 0
-            for k, base_scalar in enumerate(base_scalars):
-                count = int(arr[k, 0])
-                total_ops += int(arr[k, 1])
-                pairs = {
-                    int(i): int(b)
-                    for i, b in zip(arr[k, 2:2 + top_k],
-                                    arr[k, 2 + top_k:2 + 2 * top_k])
-                    if i >= 0
-                }
-                # the packed row holds TOP_K indices.  A range scan must
-                # report every key, so it always fetches the full window;
-                # a random scan only when the reported ones cannot reach a
-                # finite requested count (otherwise fresh windows are
-                # cheaper)
-                if count > len(pairs) and recover_overflow and (
-                        is_range or (
-                            target != float("inf")
-                            and len(matches) + len(cand_keys)
-                            + len(pairs) * mult < target)):
-                    pairs = full_window_indices(base_scalar, rems[k])
-                # the device masks the doubling lane (key 2*base, where the
-                # table point equals the base point; its ops are already in
-                # the row's count): check that key here
-                if 1 <= base_scalar <= B and (
-                        not is_range or 2 * base_scalar <= end_key):
-                    pairs.setdefault(base_scalar - 1, 0)  # 0: all variants
-                # collect in key order while the confirmed ones cannot yet
-                # reach the target (range scans report the lowest keys)
-                if pairs and len(matches) + guaranteed < target:
-                    for idx in sorted(pairs):
-                        key0 = base_scalar + 1 + idx
-                        cand_keys.extend(
-                            ec.glv_bit_variant_keys(
-                                key0, pairs[idx], parity_exact=(
-                                    self.fmt in pipeline.GLV_EXACT_Y))
-                            if glv else [key0])
-                    if exact:
-                        guaranteed += sum(1 for b in pairs.values() if b)
-            for key, ga in _derive_checked_bulk(cand_keys, self.fmt, gen):
-                if len(matches) >= target:
-                    break
-                if ga is not None and pattern.matches(ga.address):
-                    matches.append(ga)
-            if ckpt is not None:
-                # keys up to the end of this super-step's last window are done
-                ckpt.advance(min(base_scalars[-1] + B + 1, end_key + 1),
-                             total_ops, [int(m.hex, 16) for m in matches])
-            if progress_callback:
-                progress_callback(total_ops)
-
-        while not stop.is_set() and len(matches) < target:
-            while len(inflight) < max(1, config.in_flight):
-                if not submit():
-                    break
-            if not inflight:
-                break  # range exhausted
-            drain_one()
-        # drain what is in flight: its matches still count
-        while inflight and len(matches) < target:
-            drain_one()
-        if on_cuda:
-            torch.cuda.synchronize(self.device)
-        if ckpt is not None:
-            ckpt.finalize()
-        return ScanResult(
-            matches=matches[:config.count if config.count > 0 else None],
-            operations=total_ops,
-            elapsed_secs=time.time() - t0,
-        )
+        return self._scan(pattern, config, progress_callback, stop_flag,
+                          recover_overflow)
 
 
-# DeviceScanners by (format, batch, device): each holds its uploaded tables,
-# so repeated scans (``--repeat``, the calls of one process) build and
-# upload them once (vgen_tpu/scan/scanner.py ``_scanner_cache``)
+# Scanners by (format, batch, device), and ("mesh", format, batch, device):
+# each holds its uploaded tables, so repeated scans (``--repeat``, the calls
+# of one process) build and upload them once (vgen_tpu/scan/scanner.py
+# ``_scanner_cache``)
 _scanner_cache = {}
+
+
+def _use_mesh(config: ScanConfig, device) -> bool:
+    """``config.mesh``; auto (None) takes the mesh only on the card, and
+    only when this process sees more than one card or torch.distributed
+    spans more than one process (vgen_tpu/scan/scanner.py ``_use_mesh``)."""
+    if config.mesh is not None:
+        return config.mesh
+    if torch.device(device).type != "cuda":
+        return False
+    from vgen_tpu_torch.parallel import distributed
+
+    return torch.cuda.device_count() > 1 or distributed.world_size() > 1
+
+
+def _scan_mesh(pattern: Pattern, config: ScanConfig,
+               progress_callback: Optional[ProgressCallback],
+               stop_flag: Optional[StopFlag], device) -> ScanResult:
+    from vgen_tpu_torch.parallel.mesh import MeshScanner
+
+    dev = torch.device(device)
+    batch = config.device_batch_size or DEFAULT_DEVICE_BATCH
+    key = ("mesh", config.format, batch, dev)
+    if key not in _scanner_cache:
+        # "cuda": every card of this process; else the one device named
+        devices = None if dev == torch.device("cuda") else [dev]
+        _scanner_cache[key] = MeshScanner(config.format, batch, devices)
+    return _scanner_cache[key].scan(
+        pattern, count=config.count, start=config.start, end=config.end,
+        progress_callback=progress_callback, stop_flag=stop_flag,
+        checkpoint=config.checkpoint, in_flight=max(1, config.in_flight))
 
 
 def scan_with_progress(pattern: Pattern, config: ScanConfig,
                        progress_callback: Optional[ProgressCallback] = None,
                        stop_flag: Optional[StopFlag] = None,
                        device="cuda") -> ScanResult:
-    """Scan on ``device`` ("cuda", or "cpu" for the plain versions), or with
+    """Scan on ``device`` ("cuda", or "cpu" for the plain versions), over
+    the mesh of ``parallel/mesh.py`` where ``_use_mesh`` says so, or with
     the port's native CPU scanner when ``config.use_device`` is False."""
     if not config.use_device:
         return _scan_cpu(pattern, config, progress_callback, stop_flag)
+    if _use_mesh(config, device):
+        return _scan_mesh(pattern, config, progress_callback, stop_flag,
+                          device)
     batch = config.device_batch_size or DEFAULT_DEVICE_BATCH
     key = (config.format, batch, torch.device(device))
     if key not in _scanner_cache:

@@ -44,18 +44,36 @@ def _ints_to_limbs(values, nlimbs: int = 16) -> np.ndarray:
     return arr.astype(np.uint32)
 
 
-def ig_table_limbs(count: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(tx, ty): (16, count) uint32 limb arrays for [1..count]*G, disk-cached."""
-    os.makedirs(CACHE_DIR, exist_ok=True)
-    path = os.path.join(CACHE_DIR, f"torch_ig_table_{count}.npz")
-    if os.path.exists(path):
-        with np.load(path) as z:
-            return z["tx"], z["ty"]
+def ig_table_path(count: int) -> str:
+    return os.path.join(CACHE_DIR, f"torch_ig_table_{count}.npz")
+
+
+def build_ig_table_limbs(count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(tx, ty): (16, count) uint32 limb arrays for [1..count]*G, built on
+    the host by the oracle."""
     pts = ec.ig_table(count, start=1)
     tx = _ints_to_limbs([p[0] for p in pts]).T.copy()  # (16, count)
     ty = _ints_to_limbs([p[1] for p in pts]).T.copy()
+    return tx, ty
+
+
+def ig_table_limbs(count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``build_ig_table_limbs``, disk-cached."""
+    os.makedirs(CACHE_DIR, exist_ok=True)
+    path = ig_table_path(count)
+    if os.path.exists(path):
+        with np.load(path) as z:
+            return z["tx"], z["ty"]
+    tx, ty = build_ig_table_limbs(count)
     _save_npz(path, tx=tx, ty=ty)
     return tx, ty
+
+
+def upload_ig_table(tx16: np.ndarray, ty16: np.ndarray, device) -> tuple:
+    """The 16-bit limb arrays as (8, count) int32 32-bit limbs on
+    ``device``."""
+    return (u256.as_i32(u256.limbs16_to_32(tx16)).to(device),
+            u256.as_i32(u256.limbs16_to_32(ty16)).to(device))
 
 
 def window_table_u32(window_bits: int = 8) -> np.ndarray:
@@ -73,9 +91,7 @@ def window_table_u32(window_bits: int = 8) -> np.ndarray:
 def ig_table(count: int, device) -> tuple:
     """(tx, ty): (8, count) int32 limbs of [1..count]*G on ``device``:
     32 MB at count = 524288, a few milliseconds over PCIe."""
-    tx16, ty16 = ig_table_limbs(count)
-    return (u256.as_i32(u256.limbs16_to_32(tx16)).to(device),
-            u256.as_i32(u256.limbs16_to_32(ty16)).to(device))
+    return upload_ig_table(*ig_table_limbs(count), device)
 
 
 def window_table(device) -> torch.Tensor:
