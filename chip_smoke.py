@@ -6,7 +6,9 @@
 Phases (each prints what it found; any failure raises and exits non-zero):
 
 1. a CUDA card is visible; print its name and power limit (nvidia-smi);
-2. build the CUDA kernels from vgen_tpu_torch/csrc (nvcc, sm_90a);
+2. build the CUDA kernels from vgen_tpu_torch/csrc (nvcc, sm_90a; the
+   units kernels, p2tr and tables and the probe unit, one nvcc each,
+   started together);
 3. kernel A (batch_inverse_dx) against its plain PyTorch version: random
    canonical inputs from a numpy seed, K = 2, B = 8192, one forced zero-dx
    lane; bit-equal at the product's geometry (chains of M, groups of G
@@ -15,15 +17,25 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 4. kernel B (range_glv_match) and the pack tail against the plain versions
    on CPU: real i*G table and base points, pattern ^1C, K = 2, B = 8192;
    masks and packed rows bit-equal;
-5. the first scanner's i*G table (524288 points) as a stage of its own:
-   the host build, the npz cache write and the upload, in seconds (the
-   card machine's checkout holds no cache: the cold build); then the main
-   path at full width through the CLI: ``generate -p ^1C -c 3``
-   (P2PKH, B = 524288, k_sub = 8); every match re-derived by the
-   vgen_tpu_torch.crypto oracle; both kernels' launch counters > 0 in that run;
+5. the first scanner's i*G table (524288 points) built on the card
+   (kernels T1, G, T2: ``scan/tables.py`` ``build_multiples``) as a stage
+   of its own: wall milliseconds with the host's base points, each
+   kernel's by CUDA events, the table bit-equal to the host build
+   (``build_ig_table_limbs``, the oracle, timed beside it); then the main
+   path at full width through the CLI: ``generate -p ^1C -c 3`` (P2PKH,
+   B = 524288, k_sub = 8); every match re-derived by the
+   vgen_tpu_torch.crypto oracle; kernels A, B, T1, G and T2 launched in
+   that run; then a cold ``generate -p ^1C -c 1 --no-tui`` in a new
+   process, its time to the first match, with the table's npz removed
+   before and still absent after (the card path reads and writes none),
+   beside the time of a process that only imports, opens the card and
+   loads the kernels;
 6. kernels A and B and their plain versions timed at the main path's shape
    (K = 8, B = 524288) with CUDA events, outputs compared again; kernel A
-   also at (M, G) = (64, 1), once, beside the product's geometry;
+   also at (M, G) = (64, 1), once, beside the product's geometry; T1 and
+   T2 bit-equal to their plain versions at two rows of 1000 columns (T2
+   in both layouts), then timed at the i*G table (a T1 call is all its
+   launches);
 7. a timed benchmark_device run (^1BenchNeverMatches, about 10 s);
 8. kernel C (range_match) and the pack against the plain versions on CPU,
    P2PKH and P2WPKH: K = 2, B = 8192, one window based below B (it holds
@@ -58,8 +70,10 @@ Phases (each prints what it found; any failure raises and exits non-zero):
 15. a timed benchmark_device run on a DFA pattern that never matches
     (BenchNeverMatches$, P2PKH, GLV, about 5 s) through kernel E;
 16. the ladder table of the product's window schedule
-    (``fused.LADDER_WINDOW``) built from scratch on the host, timed as a
-    stage of its own; the P2TR kernels F (p2tr_ladder, finish=True, and its
+    (``fused.LADDER_WINDOW``, 17 windows of 32769 entries) built on the
+    card (T1, G, T2, the ladder layout) as a stage of its own, bit-equal to
+    the host build (``ladder_table_limbs``, timed beside it); the P2TR
+    kernels F (p2tr_ladder, finish=True, and its
     finish=False form on affine points, with the product's table and with
     the JAX package's 8-bit one), G (batch_inverse_chain at the product's
     geometry and at (64, 1), with a forced zero-Z lane), H
@@ -71,9 +85,12 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     table forms on q$ and on a.{7}$ (258 states, over the shared-memory
     budget D and I share, within the shared form's cap: the global form by
     default), and on a.{8}$ (514, over the cap) in the global form, the
-    shared one refused, each form's launch counted;
+    shared one refused, each form's launch counted; then a cold
+    ``generate -f p2tr -p ^bc1pqq -c 1 --no-tui`` in a new process, its
+    time to the first match, with both tables' npz files removed before
+    (the oracle above wrote the ladder table's) and still absent after;
 17. ``generate -f p2tr -p ^bc1pqq -c 3`` at full width: oracle-confirmed;
-    kernels A, F, G and H launched, I not;
+    kernels A, F, G, H, T1 and T2 launched, I not;
 18. ``generate -f p2tr -p qq$ -c 3``: kernels A, F, G and I (its shared
     form, ``fused.p2tr_finish_match.forms``), H not;
 19. a full-width P2TR DFA range of two windows (1048576 keys, qq$, -c 0)
@@ -191,7 +208,10 @@ is not held against the bound: a difference of two timings carries the
 noise of both.  Phase 28's rows are ``probe_glv_stage[<mode>]``,
 ``probe_vtile[<V>x<T>]``, ``probe_rows[<shape>]`` (``_mul`` with the
 multiply) and ``probe_layout[<layout>]``, ``ms`` the mean of its timed
-launches.
+launches.  The table kernels' rows ``table_grow`` (T1; ``ms`` one call,
+all of its launches for the 524288-point i*G table) and ``table_affine``
+(T2) take their launches from phase 5's main-path run, which built the
+scanner's table.
 
 Each kernel's ``bound_ms`` is the larger of the time its 32-bit integer
 instructions need (the model of ``vgen_tpu_torch/probes/bound_model.py``,
@@ -208,7 +228,8 @@ tree per group (``probes/sweep_inv_chain.py`` ``chain_count``), kernel D
 walks Base58Check in its register form (``bound_model.B58_WALK``) and
 kernel I bech32m in its (``BECH32M_WALK``), each reading its table once
 in the form it takes (the narrow form's 2 bytes an entry and 1 a state
-in shared memory, or the int32 table).  A
+in shared memory, or the int32 table); T1 counts a lean add per column
+it builds, and T2 its bytes (X, Y and zi read, x and y written).  A
 kernel timed below its bound fails the run: the model would then count
 more than the work needs.
 """
@@ -283,7 +304,7 @@ def main():
     from vgen_tpu_torch.ops import curve, fused, pipeline, u256
     from vgen_tpu_torch.probes.bound_model import (
         B58_SYMBOLS, B58_WALK, BECH32, BECH32M_WALK, DFA_STEP, EIP55_SYMBOLS,
-        FE_ADD, FE_MUL, FE_SQR, FINISH_XY,
+        FE_ADD, FE_MUL, FE_SQR, FINISH_XY, LEAN_ADD,
         HASH160, KECCAK, KECCAK_X_ONLY, RIPEMD160, SCRIPT_HASH, SHA256_X65,
         SHA256_X65_PAIR, bound, compare)
     from vgen_tpu_torch.probes import bound_model
@@ -323,9 +344,14 @@ def main():
                 "p2tr_ladder": fused.p2tr_ladder,
                 "batch_inverse_chain": fused.batch_inverse_chain,
                 "p2tr_finish_range": fused.p2tr_finish_range,
-                "p2tr_finish_match": fused.p2tr_finish_match}
+                "p2tr_finish_match": fused.p2tr_finish_match,
+                "table_grow": fused.table_grow,
+                "table_affine": fused.table_affine}
     sources = {k: "vgen_tpu_torch/csrc/kernels.cu" for k in list(wrappers)[:5]}
-    sources.update({k: "vgen_tpu_torch/csrc/p2tr.cu" for k in list(wrappers)[5:]})
+    sources.update({k: "vgen_tpu_torch/csrc/p2tr.cu"
+                    for k in list(wrappers)[5:9]})
+    sources.update({k: "vgen_tpu_torch/csrc/tables.cu"
+                    for k in list(wrappers)[9:]})
 
     def reset_launches():
         for w in wrappers.values():
@@ -353,6 +379,74 @@ def main():
         require(rc == 0, f"{argv} returned {rc}")
         rows = [json.loads(line) for line in out.getvalue().splitlines() if line]
         return rows, err.getvalue(), secs
+
+    def card_table(points, count, ladder):
+        """tables.build_multiples of ``points`` on the card -> (table, wall
+        seconds, the host's base points included)."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = tables.build_multiples(points, count, dev, ladder)
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    def small_tables():
+        """T1 and T2 against their plain versions at a small size: rows of
+        G and 7G, 1000 columns (T1's one-block launch and a single step),
+        T2 in both layouts -> {kernel: max_abs_err}."""
+        bs = u256.as_i32(tables._point_limbs(
+            [tables._doubling_chain(p, fused.table_steps(1000))
+             for p in (ec.G, ec.scalar_mult(7))]))
+        got = fused.table_grow(bs.to(dev), 1000)
+        want = fused.table_grow_plain(bs, 1000)
+        err = {"table_grow": max(max_abs_err(g.cpu(), w)
+                                 for g, w in zip(got, want))}
+        zi = fused.batch_inverse_chain_plain(want[2])
+        lad = fused.table_affine(got[0], got[1], zi.to(dev), 2, True)
+        one = [t[:, :1000].contiguous() for t in (want[0], want[1], zi)]
+        ig = fused.table_affine(*(t.to(dev) for t in one), 1, False)
+        err["table_affine"] = max(
+            [max_abs_err(lad.cpu(), fused.table_affine_plain(
+                *want[:2], zi, 2, True))]
+            + [max_abs_err(g.cpu(), w) for g, w in zip(
+                ig, fused.table_affine_plain(*one, 1, False))])
+        require(not any(err.values()), f"T1, T2 differ from their plain "
+                f"versions at 2 x 1000: {err}")
+        return err
+
+    def cold_first_match(argv, absent):
+        """``python -m vgen_tpu_torch <argv> --no-tui`` in a new process,
+        with the table npz files ``absent`` removed first and required
+        absent after -> (seconds to its first match row, seconds to its
+        exit, the row)."""
+        for path in absent:
+            if os.path.exists(path):
+                os.remove(path)
+        cmd = [sys.executable, "-m", "vgen_tpu_torch", *argv, "--no-tui",
+               "-o", "jsonl", "--quiet"]
+        env = dict(os.environ, PYTHONUNBUFFERED="1")
+        first, rows = None, []
+        with tempfile.TemporaryFile("w+") as err:
+            t0 = time.time()
+            proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                                    stderr=err, text=True, env=env)
+            try:
+                for line in proc.stdout:
+                    if line.strip():
+                        first = first or time.time() - t0
+                        rows.append(json.loads(line))
+                rc = proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            total = time.time() - t0
+            err.seek(0)
+            require(rc == 0 and len(rows) == 1,
+                    f"{cmd}: exit {rc}, {len(rows)} rows\n{err.read()[-2000:]}")
+        left = [p for p in absent if os.path.exists(p)]
+        require(not left, f"{cmd} wrote {left}: the card path reads and "
+                "writes no table npz")
+        return first, total, rows[0]
 
     def confirm(rows, fmt, pat):
         """Re-derive every reported key with the oracle -> its keys."""
@@ -504,40 +598,53 @@ def main():
         f"{int((mask_c > 0).sum())} matching lanes, rows {row_c[:, :2].tolist()}")
 
     # -- 5. main path through the CLI --------------------------------------
-    # the first scanner's i*G table as a stage of its own: the host build,
-    # the npz cache write and the upload.  The card machine's checkout holds
-    # no cache, so this is the cold build the first scan would pay; the
-    # scanner below reads the cache written here.
+    # the first scanner's i*G table, built on the card (kernels T1, G, T2)
+    # as a stage of its own, held bit-equal to the host build, the oracle
     B5 = sc.DEFAULT_DEVICE_BATCH
-    cached5 = os.path.exists(tables.ig_table_path(B5))
     t0 = time.time()
     tx16, ty16 = tables.build_ig_table_limbs(B5)
-    build5 = time.time() - t0
-    t0 = time.time()
-    os.makedirs(tables.CACHE_DIR, exist_ok=True)
-    tables._save_npz(tables.ig_table_path(B5), tx=tx16, ty=ty16)
-    write5 = time.time() - t0
-    t0 = time.time()
-    tx5, ty5 = tables.upload_ig_table(tx16, ty16, dev)
-    torch.cuda.synchronize()
-    upload5 = time.time() - t0
-    require(u256.to_ints(tx5[:, :1].cpu()) == [ec.G[0]],
-            "the i*G table's first point is not G")
+    host5 = time.time() - t0
+    want5 = tables.upload_ig_table(tx16, ty16, "cpu")
+    (tx5, ty5), wall5 = card_table([ec.G], B5, False)
+    require(torch.equal(tx5.cpu(), want5[0]) and torch.equal(ty5.cpu(),
+                                                             want5[1]),
+            "the i*G table built on the card differs from the host build")
     log(f"[5] i*G table of {B5:,} points "
-        f"({2 * tx5.numel() * 4 / 2**20:.0f} MiB on the card): host build "
-        f"{build5:.2f} s, npz cache write {write5:.2f} s, upload "
-        f"{upload5:.3f} s ({'a cache was present, rebuilt' if cached5 else 'no cache: the cold build'}) on {smi}")
-    del tx5, ty5, tx16, ty16
+        f"({2 * tx5.numel() * 4 / 2**20:.0f} MiB) built on the card in "
+        f"{wall5 * 1e3:.2f} ms wall (the host's base points included; "
+        f"T1, G and T2 by CUDA events in [6]), bit-equal to the host build, "
+        f"{host5:.2f} s, on {smi}")
+    del tx5, ty5, tx16, ty16, want5
     reset_launches()
     rows, _, secs = run_cli(["generate", "-p", "^1C", "-c", "3"])
     path_launches = {"random interval": read_launches()}
     launches = path_launches["random interval"]
     require(len(rows) == 3, f"expected 3 matches, got {len(rows)}")
     confirm(rows, fmt, pat)
-    require(launches["batch_inverse_dx"] > 0 and launches["range_glv_match"] > 0,
+    require(all(launches[k] > 0 for k in ("batch_inverse_dx",
+                                          "range_glv_match", "table_grow",
+                                          "batch_inverse_chain",
+                                          "table_affine")),
             f"a kernel was not launched on the main path: {launches}")
     log(f"[5] generate -p ^1C -c 3 (B=524288, k_sub=8) in {secs:.1f} s: "
         f"{[r['address'] for r in rows]} oracle-confirmed; launches {launches}")
+    first5, total5, row5 = cold_first_match(
+        ["generate", "-p", "^1C", "-c", "1"], [tables.ig_table_path(B5)])
+    confirm([row5], fmt, pat)
+    # what a new process takes before it scans: the imports, the card's
+    # context and the kernel libraries' load
+    t0 = time.time()
+    subprocess.run([sys.executable, "-c", (
+        "import torch, vgen_tpu_torch.cli; "
+        "from vgen_tpu_torch.csrc import build; build.load(); "
+        "torch.zeros(1, device='cuda'); torch.cuda.synchronize()")],
+        cwd=HERE, check=True, timeout=600)
+    start5 = time.time() - t0
+    log(f"[5] cold generate -p ^1C -c 1 --no-tui (a new process, no table "
+        f"npz before or after): first match {row5['address']} at "
+        f"{first5:.2f} s, exit at {total5:.2f} s; a process that only "
+        f"imports, opens the card and loads the kernels exits at "
+        f"{start5:.2f} s, on {smi}")
 
     # -- 6. kernels vs plain at the main path's shape ----------------------
     K, B = sc.DEFAULT_K_SUB, sc.DEFAULT_DEVICE_BATCH
@@ -581,6 +688,41 @@ def main():
             f"K={K} B={B}", ops, nbytes)
         log(f"[6] {kname} at K={K} B={B}: kernel {ms:.3f} ms, plain "
             f"{plain_ms:.1f} ms, bound {bms:.3f} ms ({bby}), bit-equal ({smi})")
+    # the table kernels at the main path's table (one row of B columns):
+    # T1 (a call is all its launches), T2; each first held against its
+    # plain version at a small size
+    err_t = small_tables()
+    b6 = u256.as_i32(tables._point_limbs(
+        [tables._doubling_chain(ec.G, fused.table_steps(B))])).to(dev)
+    X6, Y6, Z6 = fused.table_grow(b6, B)
+    zi6 = fused.batch_inverse_chain(Z6, *fused.TABLE_INV_GEOMETRY)
+    t2_6 = fused.table_affine(X6, Y6, zi6, 1, False)
+    for kname, run, plain, ref, replaces, ops, nbytes in (
+        ("table_grow", lambda: fused.table_grow(b6, B),
+         lambda: fused.table_grow_plain(b6, B), (X6, Y6, Z6),
+         "vgen_tpu/scan/tables.py:54", (B - 1) * LEAN_ADD,
+         192 * B + 4 * b6.numel()),
+        ("table_affine", lambda: fused.table_affine(X6, Y6, zi6, 1, False),
+         lambda: fused.table_affine_plain(X6, Y6, zi6, 1, False), t2_6,
+         "vgen_tpu/scan/tables.py:101", B * (3 * FE_MUL + FE_SQR), 160 * B),
+    ):
+        ms, plain_ms, bms, bby = time_kernel(
+            kname, run, plain, ref, replaces, launches[kname], err_t[kname],
+            f"count={B}", ops, nbytes)
+        log(f"[6] {kname} at count={B} ({launches[kname]} launches on the "
+            f"main path): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bms:.4f} ms ({bby}), bit-equal ({smi})")
+    # kernel G on the table's Z at the tables' geometry and the scan's
+    g6 = {}
+    for geo in (fused.TABLE_INV_GEOMETRY, fused.INV_GEOMETRY):
+        require(torch.equal(fused.batch_inverse_chain(Z6, *geo), zi6),
+                f"kernel G at {geo} differs on the table's Z")
+        g6[geo] = cuda_ms(lambda geo=geo: fused.batch_inverse_chain(Z6, *geo),
+                          10)
+    log(f"[6] batch_inverse_chain on the table's Z (8, {B}): "
+        + ", ".join(f"{ms:.3f} ms at (M, G) = {geo}" for geo, ms in g6.items())
+        + f" ({smi})")
+    del X6, Y6, Z6, zi6, t2_6
     row_a = next(k for k in kernels if k["name"] == "batch_inverse_dx")
     old_ms, old_bms = time_old(
         "batch_inverse_dx", "(64, 1)",
@@ -999,12 +1141,17 @@ def main():
     wtp_np = tables.ladder_table_limbs(bits, signed, refresh=True)
     table_s = time.time() - t0
     wtp_c = u256.as_i32(wtp_np)
-    wtp_d = wtp_c.to(dev)
+    wtp_d, wall16 = card_table(
+        tables.ladder_bases(bits, signed),
+        fused.ladder_shape(bits, signed)[1] - 1, True)
+    require(torch.equal(wtp_d.cpu(), wtp_c),
+            "the ladder table built on the card differs from the host build")
     log(f"[16] ladder table {slw.schedule_name(bits, signed)}: "
         f"{fused.ladder_shape(bits, signed)[0]} windows of "
         f"{fused.ladder_shape(bits, signed)[1]} entries, "
-        f"{slw.table_bytes(bits, signed) / 2**20:.2f} MiB, built in "
-        f"{table_s:.2f} s on the host")
+        f"{slw.table_bytes(bits, signed) / 2**20:.2f} MiB, built on the card "
+        f"in {wall16 * 1e3:.2f} ms wall (the host's base points included), "
+        f"bit-equal to the host build, {table_s:.2f} s, on {smi}")
     # the JAX package's 8-bit table: the ladder's earlier schedule
     wt_c = tables.window_table("cpu")
     wt_d = wt_c.to(dev)
@@ -1128,6 +1275,16 @@ def main():
         f"K={K} B={B} (plain ladder on CPU {plain_s['product']:.1f} s, 8u "
         f"{plain_s['8u']:.1f} s)")
     del F_d, Fa_d, X_d, Z_d, ok_d, zi_d, F_prod_d
+    # a cold P2TR scan: the oracle above wrote the ladder table's npz
+    first16, total16, row16 = cold_first_match(
+        ["generate", "-f", "p2tr", "-p", "^bc1pqq", "-c", "1"],
+        [tables.ig_table_path(sc.DEFAULT_DEVICE_BATCH),
+         tables.ladder_table_path(bits, signed)])
+    confirm([row16], p2tr, Pattern("^bc1pqq"))
+    log(f"[16] cold generate -f p2tr -p ^bc1pqq -c 1 --no-tui (a new "
+        f"process, no table npz before or after): first match "
+        f"{row16['address']} at {first16:.2f} s, exit at {total16:.2f} s on "
+        f"{smi}")
 
     # -- 17, 18. random P2TR paths at full width through the CLI -------------
     for argv, src, path, on, off in (
@@ -1140,8 +1297,12 @@ def main():
         got = path_launches[path] = read_launches()
         require(len(rows) == 3, f"{argv}: expected 3 matches, got {len(rows)}")
         confirm(rows, p2tr, Pattern(src))
+        # the first P2TR scanner builds both tables; the CLI's scanner
+        # cache (scanner._scanner_cache) serves the second run
+        built = (("table_grow", "table_affine")
+                 if on == "p2tr_finish_range" else ())
         require(all(got[k] > 0 for k in ("batch_inverse_dx", "p2tr_ladder",
-                                         "batch_inverse_chain", on))
+                                         "batch_inverse_chain", on) + built)
                 and got[off] == 0,
                 f"{argv}: launches {got}, expected A, F, G, {on} and not {off}")
         # qq$ (5 states): kernel I's shared form, every launch

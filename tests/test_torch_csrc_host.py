@@ -29,7 +29,62 @@ pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
 HARNESS = r"""
 #include "p2tr_lanes.cuh"
 #include "p2tr_match_lanes.cuh"
+#include "table_lanes.cuh"
 extern "C" {
+// per lane e < n: the table build's full mixed add (kind: what it met) and
+// the Jacobian doubling, in place
+void h_full_add(uint32_t* X, uint32_t* Y, uint32_t* Z, const uint32_t* x2,
+                const uint32_t* y2, int32_t* kind, int n) {
+  for (long e = 0; e < n; e++) {
+    uint32_t a[8], b[8], c[8], u[8], v[8];
+    vg::fe_load(a, X, n, e);
+    vg::fe_load(b, Y, n, e);
+    vg::fe_load(c, Z, n, e);
+    vg::fe_load(u, x2, n, e);
+    vg::fe_load(v, y2, n, e);
+    kind[e] = (int32_t)vg::jacobian_add_affine_full(a, b, c, u, v);
+    vg::fe_store(X, n, e, a);
+    vg::fe_store(Y, n, e, b);
+    vg::fe_store(Z, n, e, c);
+  }
+}
+void h_double(uint32_t* X, uint32_t* Y, uint32_t* Z, int n) {
+  for (long e = 0; e < n; e++) {
+    uint32_t a[8], b[8], c[8];
+    vg::fe_load(a, X, n, e);
+    vg::fe_load(b, Y, n, e);
+    vg::fe_load(c, Z, n, e);
+    vg::jacobian_double(a, b, c);
+    vg::fe_store(X, n, e, a);
+    vg::fe_store(Y, n, e, b);
+    vg::fe_store(Z, n, e, c);
+  }
+}
+// kernel T1 over all steps, lane by lane as tables.cu orders them; returns
+// the lanes that met infinity
+int h_table_grow(uint32_t* X, uint32_t* Y, uint32_t* Z, const uint32_t* bases,
+                 int R, int count, int steps) {
+  const long NT = (long)R * count;
+  int infinities = 0;
+  for (long r = 0; r < R; r++)
+    vg::table_first_column(X, Y, Z, bases, NT, count, steps, r);
+  for (int s = 0; s < steps; s++) {
+    const long n = 1L << s, width = n < count - n ? n : count - n;
+    for (long r = 0; r < R; r++)
+      for (long i = 0; i < width; i++)
+        infinities += vg::table_grow_lane(X, Y, Z, bases, NT, count, steps, s,
+                                          r, i) == vg::kInfinity;
+  }
+  return infinities;
+}
+void h_table_affine(const uint32_t* X, const uint32_t* Y, const uint32_t* zi,
+                    uint32_t* out_x, uint32_t* out_y, int R, int count,
+                    int ladder) {
+  for (long r = 0; r < R; r++)
+    for (long i = 0; i < count; i++)
+      vg::table_affine_lane(X, Y, zi, out_x, out_y, (long)R * count, count,
+                            ladder, r, i);
+}
 // per element e < n of (8, n) limb-major arrays
 void h_field(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, int n) {
   for (long e = 0; e < n; e++) {
@@ -209,7 +264,11 @@ def lib(tmp_path_factory):
     lib.h_interval.restype = None
     lib.h_dfa.argtypes = [i, i] + [p] * 7 + [i, i, p, p, i, i]
     lib.h_dfa.restype = None
+    lib.h_table_grow.argtypes = [p] * 4 + [i, i, i]
+    lib.h_table_grow.restype = i
     for name, args in (("h_field", [i, p, p, p, i]),
+                       ("h_full_add", [p] * 6 + [i]), ("h_double", [p] * 3 + [i]),
+                       ("h_table_affine", [p] * 5 + [i, i, i]),
                        ("h_lean_add", [p] * 6 + [i]),
                        ("h_taptweak", [p, p, i]), ("h_bech32m", [p, p, i]),
                        ("h_ladder", [p] * 9 + [i, i]),
@@ -434,6 +493,78 @@ def test_lean_add_equal_plain(lib):
         np.testing.assert_array_equal(got.astype(np.int64), w.numpy())
     np.testing.assert_array_equal(ok, want[3].numpy().astype(np.int32))
     assert ok[:4].tolist() == [0] * 4 and ok[4:].all()
+
+
+def test_full_add_and_double_equal_plain(lib):
+    """The table build's mixed add (``table_lanes.cuh``) against
+    ``curve.jacobian_add_affine`` on 64 random lanes, four doubling lanes
+    (P == Q: the branch to the doubling) and four infinity lanes (P == -Q:
+    Z3 = 0), with what each met; the Jacobian doubling on random lanes."""
+    from vgen_tpu_torch.ops import curve
+
+    rng = np.random.default_rng(35)
+    cols = [u256.to_ints(_rand_fe(rng, 64)) for _ in range(5)]
+    for j in range(8):
+        q = ec.scalar_mult(1000 + 77 * j)
+        pt = q if j < 4 else (q[0], ec.P - q[1])
+        z = u256.to_ints(_rand_fe(rng, 1))[0] or 1
+        for c, v in zip(cols, (pt[0] * z * z % ec.P, pt[1] * z ** 3 % ec.P,
+                               z, q[0], q[1])):
+            c.append(v)
+    X, Y, Z, x2, y2 = (u256.as_i32(u256.from_ints(c)) for c in cols)
+    want = curve.jacobian_add_affine(
+        *(u256.to_i64(t) for t in (X, Y, Z, x2, y2)))
+    io = [_u32(t).copy() for t in (X, Y, Z)]
+    kind = np.zeros(72, np.int32)
+    lib.h_full_add(*(_ptr(a) for a in io), _ptr(_u32(x2)), _ptr(_u32(y2)),
+                   _ptr(kind), 72)
+    for got, w in zip(io, want):
+        np.testing.assert_array_equal(got.astype(np.int64), w.numpy())
+    assert kind.tolist() == [0] * 64 + [1] * 4 + [2] * 4
+    assert not io[2][:, 68:].any() and io[2][:, :68].any(axis=0).all()
+    want = curve.jacobian_double(*(u256.to_i64(t) for t in (X, Y, Z)))
+    io = [_u32(t).copy() for t in (X, Y, Z)]
+    lib.h_double(*(_ptr(a) for a in io), 72)
+    for got, w in zip(io, want):
+        np.testing.assert_array_equal(got.astype(np.int64), w.numpy())
+
+
+@pytest.mark.parametrize("count", [1, 100, 256])
+def test_table_build_lanes_equal_plain(lib, count):
+    """Kernels T1 (every step, lane by lane, from column 0) and T2 in both
+    layouts on two rows (G and 7G), against their plain versions; and a
+    base that is not 2^s G counted once as infinity."""
+    chains = [tables._doubling_chain(p, fused.table_steps(count))
+              for p in (ec.G, ec.scalar_mult(7))]
+    b = u256.as_i32(tables._point_limbs(chains))
+    R, steps = b.shape[:2]
+    want = fused.table_grow_plain(b, count)
+    io = [np.zeros((8, R * count), np.uint32) for _ in range(3)]
+    assert lib.h_table_grow(*(_ptr(a) for a in io), _ptr(_u32(b)), R, count,
+                            steps) == 0
+    for got, w in zip(io, want):
+        np.testing.assert_array_equal(got, _u32(w))
+    X, Y, zi = want[0], want[1], fused.batch_inverse_chain_plain(want[2])
+    tbl = np.zeros((R, count + 1, 2, 8), np.uint32)
+    tbl[:, 0] = 7  # the filler rows are written to zero
+    lib.h_table_affine(_ptr(_u32(X)), _ptr(_u32(Y)), _ptr(_u32(zi)),
+                       _ptr(tbl), None, R, count, 1)
+    np.testing.assert_array_equal(
+        tbl, _u32(fused.table_affine_plain(X, Y, zi, R, True)))
+    tx, ty = (np.zeros((8, count), np.uint32) for _ in range(2))
+    row0 = [_u32(t[:, :count].contiguous()) for t in (X, Y, zi)]
+    lib.h_table_affine(*(_ptr(a) for a in row0), _ptr(tx), _ptr(ty), 1, count,
+                       0)
+    wx, wy = fused.table_affine_plain(
+        *(t[:, :count].contiguous() for t in (X, Y, zi)), 1, False)
+    np.testing.assert_array_equal(tx, _u32(wx))
+    np.testing.assert_array_equal(ty, _u32(wy))
+    if count >= 4:  # G + (-G) at step 1
+        bad = b.clone()
+        bad[0, 1] = u256.as_i32(tables._point_limbs(
+            [[(ec.G[0], ec.P - ec.G[1])]]))[0, 0]
+        assert lib.h_table_grow(*(_ptr(a) for a in io), _ptr(_u32(bad)), R,
+                                count, steps) == 1
 
 
 def test_taptweak_and_bech32m_equal_plain(lib):

@@ -586,3 +586,61 @@ def test_p2tr_match_probe_modes_equal_plain(dev):
             assert ppm.probe_p2tr_match.launches == before + 1
             want = ppm.match_plain(mode, *cpu[:4], *dfa, cpu[4])
             assert torch.equal(got.cpu(), want), (mode, form)
+
+
+# -- the table kernels T1 and T2 ---------------------------------------------
+
+
+def _table_bases(count, points):
+    return u256.as_i32(tables._point_limbs(
+        [tables._doubling_chain(p, fused.table_steps(count)) for p in points]))
+
+
+@pytest.mark.parametrize("count", [1, 100, 300, 4096])
+def test_table_kernels_t1_t2_equal_plain(dev, count):
+    """T1 (its one-block steps, and single steps past 256 columns) on two
+    rows and T2 in both layouts, against their plain versions."""
+    b = _table_bases(count, (ec.G, ec.scalar_mult(7)))
+    before = fused.table_grow.launches
+    got = fused.table_grow(b.to(dev), count)
+    torch.cuda.synchronize()
+    assert (fused.table_grow.launches - before
+            == len(fused.table_launches(count)))
+    want = fused.table_grow_plain(b, count)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    zi = fused.batch_inverse_chain_plain(want[2])
+    before = fused.table_affine.launches
+    tbl = fused.table_affine(got[0], got[1], zi.to(dev), 2, True)
+    one = [t[:, :count].contiguous() for t in (want[0], want[1], zi)]
+    txy = fused.table_affine(*(t.to(dev) for t in one), 1, False)
+    torch.cuda.synchronize()
+    assert fused.table_affine.launches == before + 2
+    assert torch.equal(tbl.cpu(), fused.table_affine_plain(*want[:2], zi, 2,
+                                                           True))
+    for g, w in zip(txy, fused.table_affine_plain(*one, 1, False)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_table_grow_kernel_raises_on_infinity(dev):
+    """A base that is not 2^s G: G + (-G) at step 1 is counted on the card
+    and refused."""
+    b = _table_bases(4, (ec.G,))
+    b[0, 1] = u256.as_i32(tables._point_limbs([[(ec.G[0], ec.P - ec.G[1])]]))[
+        0, 0]
+    with pytest.raises(ValueError, match="1 lanes met the point at infinity"):
+        fused.table_grow(b.to(dev), 4)
+
+
+@pytest.mark.parametrize("count", [4096, 5000])
+def test_ig_table_built_on_the_card_equals_host_build(dev, count):
+    tx, ty = tables.ig_table(count, dev)
+    want = tables.upload_ig_table(*tables.build_ig_table_limbs(count), "cpu")
+    assert torch.equal(tx.cpu(), want[0]) and torch.equal(ty.cpu(), want[1])
+
+
+def test_ladder_table_built_on_the_card_equals_host_build(dev):
+    for schedule in ((8, False), (13, True)):
+        got = tables.ladder_table(dev, *schedule)
+        want = tables.ladder_table_limbs(*schedule)
+        assert torch.equal(got.cpu(), u256.as_i32(want)), schedule

@@ -294,9 +294,9 @@ def test_wrapper_raises_for_tensors_off_the_cpu(ab, call):
 
 
 def test_probe_unit_builds_apart_from_the_product(tmp_path, monkeypatch):
-    """The product's units stay kernels and p2tr, and a probe source edit
-    changes the probe library's name but not the product's."""
-    assert build.UNITS == ("kernels", "p2tr")
+    """The product's units stay kernels, p2tr and tables, and a probe
+    source edit changes the probe library's name but not the product's."""
+    assert build.UNITS == ("kernels", "p2tr", "tables")
     assert "probes" in build.PROBE_UNITS
     before = {u: build.library_path(u) for u in build.UNITS + ("probes",)}
     copy = tmp_path / "probes"

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc at first use; load with ctypes.
 
 Each ``.cu`` file in this directory (a "unit": ``kernels`` holds kernel A
-and kernels B to E for the five hash formats, ``p2tr`` kernels F to I)
+and kernels B to E for the five hash formats, ``p2tr`` kernels F to I,
+``tables`` the table kernels T1 and T2 that build the i*G and ladder tables)
 compiles into its own shared library with a plain C interface, for
 ``sm_90a`` (Hopper).  The first ``load`` of a product unit starts one
 nvcc per product unit, all at once, and waits for them.  The probe unit
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-UNITS = ("kernels", "p2tr")
+UNITS = ("kernels", "p2tr", "tables")
 PROBE_UNITS = ("probes",)
 
 _lock = threading.Lock()
@@ -160,6 +161,10 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 "vgen_p2tr_finish_range": [p, p, p, p, p, p, i, p, p, i, i, p],
                 "vgen_p2tr_finish_match": [i, p, p, p, p, p, p, i, i, i, p, p,
                                            i, i, p],
+            },
+            "tables": {
+                "vgen_table_grow": [p, p, p, p, p, i, i, i, i, i, i, p],
+                "vgen_table_affine": [p, p, p, p, p, i, i, i, p],
             },
             "probes": {
                 "vgen_probe_primitive": [i, p, p, p, p, i, i, p],

@@ -7,6 +7,8 @@ shares one batch inversion of dx = tx - bx across the batch
 (kernels C and D).  The P2TR tweak ladder (kernel F,
 ``csrc/p2tr_lanes.cuh``) accumulates with ``jacobian_add_affine_lean``,
 and doubles with ``affine_double`` where an add meets its own point.
+The i*G and ladder tables' builder (``scan/tables.py`` ``build_multiples``,
+``csrc/table_lanes.cuh``) adds by ``jacobian_add_affine`` with its doubling.
 """
 
 from __future__ import annotations
@@ -76,3 +78,35 @@ def affine_double(x, y):
     X3 = field.sub(field.square(E), field.mul_small(D, 2))
     Y3 = field.sub(field.mul(E, field.sub(D, X3)), field.mul_small(C, 8))
     return X3, Y3, field.mul_small(y, 2)
+
+
+def jacobian_double(X1, Y1, Z1):
+    """2 (X1, Y1, Z1) in Jacobian coordinates by dbl-2009-l for a = 0
+    (the counterpart of ``vgen_tpu/ops/curve.py`` ``jacobian_double``)."""
+    A = field.square(X1)
+    Bv = field.square(Y1)
+    C = field.square(Bv)
+    D = field.mul_small(field.sub(field.sub(field.square(field.add(X1, Bv)),
+                                            A), C), 2)
+    E = field.mul_small(A, 3)
+    X3 = field.sub(field.square(E), field.mul_small(D, 2))
+    Y3 = field.sub(field.mul(E, field.sub(D, X3)), field.mul_small(C, 8))
+    Z3 = field.mul_small(field.mul(Y1, Z1), 2)
+    return X3, Y3, Z3
+
+
+def jacobian_add_affine(X1, Y1, Z1, x2, y2):
+    """Mixed add of a Jacobian (X1, Y1, Z1) and an affine (x2, y2),
+    branch-free (the counterpart of ``vgen_tpu/ops/curve.py``
+    ``jacobian_add_affine`` without its ``z1_is_zero``): where H == 0 and
+    r == 0 (P == Q) the sum is the doubling, where H == 0 and r != 0
+    (P == -Q) the point at infinity (Z3 = 0).  The i*G and ladder tables'
+    builder (``csrc/table_lanes.cuh``) takes the doubling by a branch
+    instead."""
+    X3, Y3, Z3, ok = jacobian_add_affine_lean(X1, Y1, Z1, x2, y2)
+    # H == 0 left Z3 = 0 and X3 = r^2: r == 0 is the doubling, else
+    # infinity, which Z3 = 0 already is
+    dbl = ~ok & u256.is_zero(X3)
+    dX, dY, dZ = jacobian_double(X1, Y1, Z1)
+    return tuple(u256.select(dbl, d, n) for d, n in ((dX, X3), (dY, Y3),
+                                                     (dZ, Z3)))

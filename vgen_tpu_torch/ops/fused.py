@@ -1,4 +1,5 @@
-"""The scan steps: nine CUDA kernels and the pack tail.
+"""The scan steps: nine CUDA kernels and the pack tail; and the two table
+kernels.
 
 One super-step covers K windows of B keys.  Window k adds its base point
 (bx[k], by[k]) = base_k * G to every table point i*G, i = 1..B:
@@ -34,6 +35,12 @@ kernel A and the pack (``csrc/p2tr.cu``):
 - G, ``batch_inverse_chain``: canonical inverses of Z, zero guarded to 1;
 - H, ``p2tr_finish_range``: qx = X * zi^2, 8-word interval compare -> 0/1;
 - I, ``p2tr_finish_match``: qx, bech32m symbols, DFA walk -> 0/1.
+
+The i*G table and the P2TR ladder table are built on the card by two more
+kernels (``csrc/tables.cu``) around kernel G: T1, ``table_grow``, the
+log-doubling steps of rows of multiples in Jacobian coordinates; G on their
+Z; T2, ``table_affine``, the affine pass into the consumer's layout
+(``scan/tables.py`` ``build_multiples``).
 
 Each kernel wrapper runs its plain PyTorch version when every tensor lies on
 the CPU; for CUDA tensors it checks them and launches the kernel, or raises.
@@ -820,6 +827,173 @@ def batch_inverse_chain(values: torch.Tensor, chain: int = INV_GEOMETRY[0],
 
 
 batch_inverse_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The table kernels: T1 (log-doubling steps) and T2 (the affine pass)
+# ---------------------------------------------------------------------------
+
+# kernel G's (M, G) on a table's Z, (8, R count): the product's (64, 256)
+# gives 8192 threads at the i*G table's 524288 points, 32 blocks on 132
+# SMs.  Chosen on the card by ``python -m vgen_tpu_torch.probes.sweep_inv_chain
+# --n 524288 557056`` (the i*G table, the 16-bit ladder table): (16, 256)
+# read 0.190 and 0.203 ms, (64, 256) 0.309 and 0.312; (8, 256), 0.176 at
+# 524288, took 0.352 at 557056, whose 272 blocks of 96-register threads
+# overflow one wave of two blocks per SM (NVIDIA H100 80GB HBM3, 700 W).
+TABLE_INV_GEOMETRY = (16, 256)
+# T1's threads a block, passed to its launcher: the steps of at most this
+# many columns a row run in one launch of one block per row
+TABLE_GROW_BLOCK = 256
+
+
+def table_steps(count: int) -> int:
+    """The log-doubling steps of ``count`` columns, ceil(log2 count), at
+    least 1: the base points 2^s P a row needs, s < steps."""
+    return max((count - 1).bit_length(), 1)
+
+
+def table_launches(count: int):
+    """T1's launches for ``count`` columns, as [(s0, s1)] step ranges: the
+    steps of at most ``TABLE_GROW_BLOCK`` columns in one block per row, then
+    one launch per step."""
+    steps = table_steps(count)
+    first = min(steps, TABLE_GROW_BLOCK.bit_length())
+    return [(0, first)] + [(s, s + 1) for s in range(first, steps)]
+
+
+def _table_rows(name: str, bases: torch.Tensor, count: int) -> int:
+    if count < 1:
+        raise ValueError(f"{name}: {count} columns, expected at least 1")
+    steps = table_steps(count)
+    if bases.dim() != 4 or tuple(bases.shape[1:]) != (steps, 2, 8):
+        raise ValueError(f"{name}: bases of shape {tuple(bases.shape)}, "
+                         f"expected (rows, {steps}, 2, 8) for {count} columns")
+    return bases.shape[0]
+
+
+def _check_infinities(name: str, n: int) -> None:
+    """Kernel G guards a zero Z to 1, which would turn a lane at infinity
+    into a wrong point without a word: refuse the table instead."""
+    if n:
+        raise ValueError(f"{name}: {n} lanes met the point at infinity (a "
+                         "base is not 2^s P of its row, or a row wraps the "
+                         "group order)")
+
+
+def table_grow_plain(bases: torch.Tensor, count: int):
+    """Plain version of kernel T1 over all of a table's steps.  bases
+    (R, steps, 2, 8) int32, the affine 2^s P_r of each row (steps =
+    ``table_steps(count)``) -> (X, Y, Z) (8, R count) int32 Jacobian, column
+    c of row r at r count + c holding (c + 1) P_r: column 0 is P_r (Z = 1),
+    and step s (n = 2^s) makes column n + i = column i + 2^s P_r for i <
+    min(n, count - n) by ``curve.jacobian_add_affine`` (its doubling where
+    i = n - 1).  Raises ValueError where an add met the point at
+    infinity."""
+    R = _table_rows("table_grow", bases, count)
+    b = u256.to_i64(bases)
+    X, Y, Z = (torch.zeros((8, R, count), dtype=torch.int64,
+                           device=bases.device) for _ in range(3))
+    X[:, :, 0], Y[:, :, 0], Z[0, :, 0] = b[:, 0, 0].T, b[:, 0, 1].T, 1
+    infinities = 0
+    for s in range(table_steps(count)):
+        n = 1 << s
+        w = min(n, count - n)
+        if w <= 0:
+            continue
+        x2, y2 = (b[:, s, c].T.reshape(8, R, 1).expand(8, R, w)
+                  for c in (0, 1))
+        Xn, Yn, Zn = curve.jacobian_add_affine(X[:, :, :w], Y[:, :, :w],
+                                               Z[:, :, :w], x2, y2)
+        # P == -Q: Z3 = 0 from a finite P
+        infinities += int((u256.is_zero(Zn)
+                           & ~u256.is_zero(Z[:, :, :w])).sum())
+        X[:, :, n:n + w], Y[:, :, n:n + w], Z[:, :, n:n + w] = Xn, Yn, Zn
+    _check_infinities("table_grow", infinities)
+    return tuple(u256.to_i32(t.reshape(8, R * count)) for t in (X, Y, Z))
+
+
+def table_grow(bases: torch.Tensor, count: int):
+    """Kernel T1 (``csrc/tables.cu``): same contract as
+    ``table_grow_plain``, in the launches of ``table_launches`` (at most
+    ceil(log2 count)), the Jacobian arrays updated in place; the lanes
+    that met infinity are counted on the card and read once at the end
+    (one synchronisation)."""
+    if _all_cpu(bases):
+        return table_grow_plain(bases, count)
+    R = _table_rows("table_grow", bases, count)
+    steps = bases.shape[1]
+    dev = _check_cuda("table_grow", [("bases", bases, (R, steps, 2, 8))])
+    X, Y, Z = (torch.empty((8, R * count), dtype=torch.int32, device=dev)
+               for _ in range(3))
+    infinities = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        for s0, s1 in table_launches(count):
+            _launch("tables", "table_grow", X.data_ptr(), Y.data_ptr(),
+                    Z.data_ptr(), bases.data_ptr(), infinities.data_ptr(), R,
+                    count, steps, s0, s1, TABLE_GROW_BLOCK, _stream(dev))
+            table_grow.launches += 1
+    _check_infinities("table_grow", int(infinities.item()))
+    return X, Y, Z
+
+
+table_grow.launches = 0
+
+
+def _affine_shape(X, rows: int, ladder: bool):
+    """(N, count) of T2's (8, N) inputs in ``rows`` rows."""
+    N = X.shape[1]
+    if rows < 1 or N == 0 or N % rows:
+        raise ValueError(f"table_affine: {N} columns do not split into "
+                         f"{rows} rows")
+    if not ladder and rows != 1:
+        raise ValueError("table_affine: the i*G layout has one row")
+    return N, N // rows
+
+
+def table_affine_plain(X, Y, zi, rows: int, ladder: bool):
+    """Plain version of kernel T2.  X, Y, zi (8, R count) int32 (zi = 1 / Z
+    from kernel G, R = ``rows``) -> the affine (x, y) = (X zi^2, Y zi^3) in
+    the consumer's layout: ladder False, (tx, ty) (8, count) int32 (R = 1,
+    the i*G table); ladder True, the ladder table (R, count + 1, 2, 8)
+    int32, entry [r][c + 1] = column c of row r, the d = 0 rows zero."""
+    N, count = _affine_shape(X, rows, ladder)
+    z = u256.to_i64(zi)
+    zi2 = field.square(z)
+    x = field.mul(u256.to_i64(X), zi2)
+    y = field.mul(u256.to_i64(Y), field.mul(zi2, z))
+    if not ladder:
+        return u256.to_i32(x), u256.to_i32(y)
+    out = torch.zeros((rows, count + 1, 2, 8), dtype=torch.int64,
+                      device=X.device)
+    out[:, 1:, 0] = x.reshape(8, rows, count).permute(1, 2, 0)
+    out[:, 1:, 1] = y.reshape(8, rows, count).permute(1, 2, 0)
+    return u256.to_i32(out)
+
+
+def table_affine(X, Y, zi, rows: int, ladder: bool):
+    """Kernel T2 (``csrc/tables.cu``): same contract as
+    ``table_affine_plain``, one launch."""
+    if _all_cpu(X, Y, zi):
+        return table_affine_plain(X, Y, zi, rows, ladder)
+    N, count = _affine_shape(X, rows, ladder)
+    dev = _check_cuda("table_affine", [("X", X, (8, N)), ("Y", Y, (8, N)),
+                                       ("zi", zi, (8, N))])
+    if ladder:
+        out = torch.empty((rows, count + 1, 2, 8), dtype=torch.int32,
+                          device=dev)
+        ptrs = (out.data_ptr(), out.data_ptr())
+    else:
+        out = tuple(torch.empty((8, count), dtype=torch.int32, device=dev)
+                    for _ in range(2))
+        ptrs = tuple(t.data_ptr() for t in out)
+    with torch.cuda.device(dev):
+        _launch("tables", "table_affine", X.data_ptr(), Y.data_ptr(),
+                zi.data_ptr(), *ptrs, rows, count, int(ladder), _stream(dev))
+    table_affine.launches += 1
+    return out
+
+
+table_affine.launches = 0
 
 
 def _p2tr_qx(X, Z, zi, ok, remaining):

@@ -98,7 +98,10 @@ class MeshScanner(SuperStepScan):
                              f"numbers of devices: {counts.tolist()}")
         self.n_devices = self.world * len(devices)
         self.windows = self.n_devices * k_sub
-        # one DeviceScanner (its tables and route) per distinct device
+        # one DeviceScanner (its tables and route) per distinct device: each
+        # card builds its own tables, in milliseconds, where the JAX package
+        # builds on its first device and replicates
+        # (vgen_tpu/parallel/mesh.py:281-283)
         self._scanners = {}
         for dev in devices:
             if dev not in self._scanners:

@@ -19,6 +19,14 @@ product geometry's, and prints the warps per SM the threads come to
 geometry (``chain_count``) and its share, and each block size's ptxas
 registers, stack and spill.  It measures the card only: without one it
 exits non-zero.
+
+    python -m vgen_tpu_torch.probes.sweep_inv_chain --n 524288 557056
+
+sweeps kernel G alone at each N instead, on random nonzero elements, over
+chains of 1 to 64 (``TABLE_CHAINS``): the Z of the tables the card builds
+(``scan/tables.py`` ``build_multiples``: the i*G table's 524288 points,
+the 16-bit ladder table's 17 x 32768), where the product's geometry leaves
+most SMs idle.  Its fastest geometry is ``fused.TABLE_INV_GEOMETRY``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ K, B = 8, common.TIMED_N
 CHAINS = (8, 16, 32, 64, 128)
 GROUPS = (1, 32, 256, 512)
 GEOMETRIES = tuple((m, g) for m in CHAINS for g in GROUPS)
+TABLE_CHAINS = (1, 2, 4, 8, 16, 32, 64)
+TABLE_GEOMETRIES = tuple((m, g) for m in TABLE_CHAINS for g in GROUPS)
 # per element: kernel A's subtraction tx - bx, kernel G's zero guard
 A_INPUT = bm.FE_ADD
 G_INPUT = bm.ops(0, 0, 8)
@@ -60,20 +70,34 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m vgen_tpu_torch.probes.sweep_inv_chain",
         description=__doc__.split("\n\n")[0])
-    ap.parse_args(argv)
+    ap.add_argument("--n", type=int, nargs="+", default=None,
+                    help="sweep kernel G alone at these element counts "
+                    "(the tables' Z) over TABLE_GEOMETRIES")
+    args = ap.parse_args(argv)
     card = timing.Card()
-    tag, n = card.tag(), K * B
-    tx = common.inputs(B, seed=73)[0].to(card.device)
-    bx = common.inputs(K, seed=74)[0].T.contiguous().to(card.device)
-    v = common.inputs(n, seed=75)[0]
-    v[:, ::4097] = 0  # zero lanes, guarded to 1
-    v = v.to(card.device)
-    kernels = {
-        "batch_inverse_dx": (lambda m, g: fused.batch_inverse_dx(
-            bx, tx, chain=m, group=g), A_INPUT, 32 * (K + B + n)),
-        "batch_inverse_chain": (lambda m, g: fused.batch_inverse_chain(
-            v, chain=m, group=g), G_INPUT, 64 * n),
-    }
+    tag = card.tag()
+    # name -> (run(m, g), per-element input cost, bytes, elements)
+    kernels = {}
+    if args.n:
+        geometries = TABLE_GEOMETRIES
+        for n in args.n:
+            vn = common.inputs(n, seed=76)[0].to(card.device)
+            kernels[f"batch_inverse_chain[N={n}]"] = (
+                lambda m, g, vn=vn: fused.batch_inverse_chain(
+                    vn, chain=m, group=g), G_INPUT, 64 * n, n)
+    else:
+        geometries, n = GEOMETRIES, K * B
+        tx = common.inputs(B, seed=73)[0].to(card.device)
+        bx = common.inputs(K, seed=74)[0].T.contiguous().to(card.device)
+        v = common.inputs(n, seed=75)[0]
+        v[:, ::4097] = 0  # zero lanes, guarded to 1
+        v = v.to(card.device)
+        kernels = {
+            "batch_inverse_dx": (lambda m, g: fused.batch_inverse_dx(
+                bx, tx, chain=m, group=g), A_INPUT, 32 * (K + B + n), n),
+            "batch_inverse_chain": (lambda m, g: fused.batch_inverse_chain(
+                v, chain=m, group=g), G_INPUT, 64 * n, n),
+        }
     prod = fused.INV_GEOMETRY
     log = build.build_log(("kernels", "p2tr"))
     for name, kern in (("inv_dx_kernel", "A"), ("inv_chain_kernel", "G")):
@@ -81,20 +105,20 @@ def main(argv=None) -> int:
         print(f"# ptxas kernel {kern} ({name}): " + "; ".join(
             f"block {args[0]}: {timing.ptxas_text(f)}"
             for args, f in sorted(figs.items())) + f" {tag}", flush=True)
-    print(f"# sweep_inv_chain: kernels A and G at K={K} B={B}; ms per "
-          f"launch, best of five means of 10; outputs held to (M, G) = "
-          f"{prod} {tag}", flush=True)
+    print(f"# sweep_inv_chain: {', '.join(kernels)}; ms per launch, best "
+          f"of five means of 10; outputs held to (M, G) = {prod} {tag}",
+          flush=True)
     best = {}
-    for kname, (run, per_input, nbytes) in kernels.items():
+    for kname, (run, per_input, nbytes, n) in kernels.items():
         ref = run(*prod)
-        for m, g in GEOMETRIES:
+        for m, g in geometries:
             out = run(m, g)
             if not torch.equal(out, ref):
                 print(f"error: {kname} (M, G) = ({m}, {g}) differs from "
                       f"{prod}", file=sys.stderr)
                 return 1
             ms = timing.launch_ms(lambda: run(m, g))
-            threads = n // m
+            threads = n // fused._chain_len(n, m)
             bms, bby = bm.bound(n * chain_count(m, g, per_input), nbytes,
                                 card.sm_clocks_per_s)
             old_bms = bm.bound(n * chain_count(m, 1, per_input), nbytes,

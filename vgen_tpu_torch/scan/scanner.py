@@ -256,8 +256,9 @@ class DeviceScanner(SuperStepScan):
         self.k_sub = self.windows = k_sub
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceScanner: no CUDA device is visible")
+        # the i*G table and the P2TR ladder's window table, built once per
+        # scanner: on a card by the table kernels, on the CPU from npz
         self.tx, self.ty = tables.ig_table(batch_size, self.device)
-        # the P2TR ladder's window table, uploaded once per scanner
         self.wt = (tables.ladder_table(self.device)
                    if fmt == AddressFormat.P2TR else None)
         self._full_remaining = self._remaining([batch_size] * k_sub)
@@ -380,8 +381,8 @@ class DeviceScanner(SuperStepScan):
 
 
 # Scanners by (format, batch, device), and ("mesh", format, batch, device):
-# each holds its uploaded tables, so repeated scans (``--repeat``, the calls
-# of one process) build and upload them once (vgen_tpu/scan/scanner.py
+# each holds its tables, so repeated scans (``--repeat``, the calls of one
+# process) build them once (vgen_tpu/scan/scanner.py
 # ``_scanner_cache``)
 _scanner_cache = {}
 
