@@ -100,7 +100,7 @@ def test_profile_writes_a_chrome_trace(capsys, stub_scan, tmp_path, argv):
     out = tmp_path / "trace"
     assert cli.run_from_args(argv + ["--profile", str(out)]) == 0
     assert f"Profiler trace written to {out}" in capsys.readouterr().err
-    traces = list(out.glob("*.json"))
+    traces = list(out.glob("vgen_tpu_torch_scan_*.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)

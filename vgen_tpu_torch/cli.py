@@ -26,6 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from vgen_tpu_torch import provider as provider_mod
+from vgen_tpu_torch import tracing
 from vgen_tpu_torch.crypto import secp256k1 as ec
 from vgen_tpu_torch.crypto.address import (
     AddressFormat,
@@ -434,8 +435,9 @@ def run_search(pattern_str: str, ignore_case: bool, fmt: AddressFormat,
 def _profiled(trace_dir: Optional[str], device: Optional[str], quiet: bool):
     """With ``trace_dir``, a torch.profiler trace of the scan (CPU and CUDA
     activity on the card, CPU activity otherwise), written into the
-    directory as a Chrome trace; the counterpart of the reference's
-    ``--profile`` (a JAX profiler trace)."""
+    directory as a Chrome trace, and beside it the spans, counters and
+    start stages of ``tracing.snapshot()`` as JSON; the counterpart of the
+    reference's ``--profile`` (a JAX profiler trace)."""
     if not trace_dir:
         yield
         return
@@ -453,6 +455,9 @@ def _profiled(trace_dir: Optional[str], device: Optional[str], quiet: bool):
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             trace_dir, f"vgen_tpu_torch_scan_{os.getpid()}.json"))
+        with open(os.path.join(trace_dir, "vgen_tpu_torch_spans_"
+                               f"{os.getpid()}.json"), "w") as f:
+            json.dump(tracing.snapshot(), f, indent=1)
         if not quiet:
             print(f"\nProfiler trace written to {trace_dir}", file=sys.stderr)
 

@@ -140,6 +140,12 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
         if unit not in UNITS + PROBE_UNITS:
             raise ValueError(f"unknown kernel unit {unit!r}")
         group = UNITS if unit in UNITS else (unit,)
+        from vgen_tpu_torch import tracing
+
+        # the product group's first load: the build check and the dlopen
+        stage = (tracing.stage("start.kernels") if group == UNITS
+                 else tracing.NOOP)
+        stage.begin()
         paths = build(group)
         p, i = ctypes.c_void_p, ctypes.c_int
         signatures = {
@@ -190,4 +196,5 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes, fn.restype = argtypes, i
             _libs[u] = lib
+        stage.end()
         return _libs[unit]

@@ -77,6 +77,11 @@ def get_lib():
     with _lock:
         if _lib is not None or _build_error is not None:
             return _lib
+        from vgen_tpu_torch import tracing
+
+        # the first load: the build check and the dlopen
+        stage = tracing.stage("start.native")
+        stage.begin()
         lib_path = os.path.join(
             _cache_dir(), f"{_source_stamp()}-{_LIB_NAME}"
         )
@@ -87,6 +92,7 @@ def get_lib():
         except Exception as e:  # toolchain missing, build failure, ...
             _build_error = str(e)
             return None
+        stage.end()
         lib.vgen_tables_new.restype = ctypes.c_void_p
         lib.vgen_tables_new.argtypes = [ctypes.c_int]
         lib.vgen_tables_free.argtypes = [ctypes.c_void_p]

@@ -1150,3 +1150,15 @@ def fused_p2tr_scan_step(bx, by, tx, ty, dfa_table, dfa_accept, start,
     mask = fused_p2tr_scan_mask_step(bx, by, tx, ty, dfa_table, dfa_accept,
                                      start, remaining, wt, narrow)
     return pack_tail(mask, remaining, 1)
+
+
+# every kernel wrapper with a ``launches`` counter
+LAUNCH_COUNTED = (batch_inverse_dx, range_glv_match, range_match, dfa_match,
+                  glv_dfa_match, p2tr_ladder, batch_inverse_chain,
+                  p2tr_finish_range, p2tr_finish_match, table_grow,
+                  table_affine)
+
+
+def launch_count() -> int:
+    """Kernel launches so far: the sum of the wrappers' ``launches``."""
+    return sum(w.launches for w in LAUNCH_COUNTED)

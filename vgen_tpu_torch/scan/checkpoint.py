@@ -84,6 +84,8 @@ class CheckpointManager:
         self._write()
 
     def _write(self) -> None:
+        from vgen_tpu_torch import tracing
+
         data = dict(self.meta)
         data["next_key"] = hex(self._next_key)
         data["operations"] = self._operations
@@ -92,7 +94,10 @@ class CheckpointManager:
         tmp = self.path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(data, f, indent=2)
+            size = f.tell()
         os.replace(tmp, self.path)  # atomic on POSIX
+        tracing.count("checkpoint_writes")
+        tracing.count("checkpoint_bytes", size)
 
     def remove(self) -> None:
         try:

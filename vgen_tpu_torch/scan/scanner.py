@@ -30,6 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from vgen_tpu_torch import tracing
 from vgen_tpu_torch.crypto import secp256k1 as ec
 from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator, GeneratedAddress
 from vgen_tpu_torch.pattern import Pattern
@@ -79,7 +80,8 @@ class SuperStepScan:
         # inside [start, end]
         glv = not is_range and self.fmt in pipeline.GLV_FORMATS
         mult = GLV_KEYS if glv else 1
-        route, exact = self._plan(pattern, config, glv)
+        with tracing.stage("start.route"):
+            route, exact = self._plan(pattern, config, glv)
         B, W = self.batch, self.windows
 
         gen = AddressGenerator(self.fmt)
@@ -108,6 +110,8 @@ class SuperStepScan:
         stop = stop_flag or StopFlag()
         target = config.count if config.count > 0 else float("inf")
         steps = 0
+        # a process's first super-step, from its submit to its rows
+        first_step = tracing.stage("start.first_step")
 
         # a window covers keys base+1 .. base+B with base = next_key - 1, so
         # key 1 (base 0, the point at infinity) is checked on the host
@@ -128,8 +132,13 @@ class SuperStepScan:
             # None: every window full (random scans)
             rems = ([max(0, min(B, end_key - base)) for base in base_scalars]
                     if is_range else None)
-            inflight.append((base_scalars, rems,
-                             self._submit(route, base_scalars, rems)))
+            first_step.begin()
+            with tracing.span("vgen.submit") as traced:
+                n0 = fused.launch_count() if traced else 0
+                handle = self._submit(route, base_scalars, rems)
+                if traced:
+                    tracing.count("launches", fused.launch_count() - n0)
+            inflight.append((base_scalars, rems, handle))
             steps += 1
             nk = next_key + B * W
             if not is_range and nk + B * (W + 1) >= ec.N:
@@ -140,9 +149,17 @@ class SuperStepScan:
             return True
 
         def drain_one():
+            with tracing.span("vgen.drain"):
+                _drain_one()
+            if progress_callback:
+                progress_callback(total_ops)
+
+        def _drain_one():
             nonlocal total_ops
             base_scalars, rems, handle = inflight.popleft()
             arr = _host_rows(handle)
+            first_step.end()
+            tracing.count("super_steps")
             top_k = pipeline.TOP_K
             cand_keys: List[int] = []
             # device-confirmed indices so far in this super-step: each
@@ -167,8 +184,10 @@ class SuperStepScan:
                             target != float("inf")
                             and len(matches) + len(cand_keys)
                             + len(pairs) * mult < target)):
-                    pairs = self._window_indices(
-                        route, base_scalar, rems[k] if is_range else B)
+                    with tracing.span("vgen.drain.recover"):
+                        pairs = self._window_indices(
+                            route, base_scalar, rems[k] if is_range else B)
+                    tracing.count("overflow_recoveries")
                 # the device masks the doubling lane (key 2*base, where the
                 # table point equals the base point; its ops are already in
                 # the row's count): check that key here
@@ -187,17 +206,20 @@ class SuperStepScan:
                             if glv else [key0])
                     if exact:
                         guaranteed += sum(1 for b in pairs.values() if b)
-            for key, ga in _derive_checked_bulk(cand_keys, self.fmt, gen):
-                if len(matches) >= target:
-                    break
-                if ga is not None and pattern.matches(ga.address):
-                    matches.append(ga)
+            n_matches = len(matches)
+            with tracing.span("vgen.drain.derive"):
+                for key, ga in _derive_checked_bulk(cand_keys, self.fmt, gen):
+                    if len(matches) >= target:
+                        break
+                    if ga is not None and pattern.matches(ga.address):
+                        matches.append(ga)
+            tracing.count("candidates", len(cand_keys))
+            tracing.count("matches", len(matches) - n_matches)
             if ckpt is not None:
                 # keys up to the end of this super-step's last window are done
-                ckpt.advance(min(base_scalars[-1] + B + 1, end_key + 1),
-                             total_ops, [int(m.hex, 16) for m in matches])
-            if progress_callback:
-                progress_callback(total_ops)
+                with tracing.span("vgen.drain.checkpoint"):
+                    ckpt.advance(min(base_scalars[-1] + B + 1, end_key + 1),
+                                 total_ops, [int(m.hex, 16) for m in matches])
 
         while not stop.is_set() and len(matches) < target:
             while len(inflight) < max(1, config.in_flight):
@@ -234,8 +256,9 @@ def _copy_to_host(packed: torch.Tensor):
 
 def _host_rows(handle) -> np.ndarray:
     host, done = handle
-    if done is not None:
-        done.synchronize()
+    with tracing.span("vgen.drain.wait"):
+        if done is not None:
+            done.synchronize()
     return host.numpy()
 
 
@@ -258,9 +281,10 @@ class DeviceScanner(SuperStepScan):
             raise RuntimeError("DeviceScanner: no CUDA device is visible")
         # the i*G table and the P2TR ladder's window table, built once per
         # scanner: on a card by the table kernels, on the CPU from npz
-        self.tx, self.ty = tables.ig_table(batch_size, self.device)
-        self.wt = (tables.ladder_table(self.device)
-                   if fmt == AddressFormat.P2TR else None)
+        with tracing.stage("start.tables"):
+            self.tx, self.ty = tables.ig_table(batch_size, self.device)
+            self.wt = (tables.ladder_table(self.device)
+                       if fmt == AddressFormat.P2TR else None)
         self._full_remaining = self._remaining([batch_size] * k_sub)
 
     def _plan_intervals(self, pattern: Pattern, config: ScanConfig):
@@ -284,11 +308,12 @@ class DeviceScanner(SuperStepScan):
 
     def _base_points(self, scalars: List[int]):
         """(bx, by) (K, 8) int32 of scalar * G on the device."""
-        pts = [ec.scalar_mult_base_fast(s) for s in scalars]
-        bx = u256.from_ints([p[0] for p in pts]).T
-        by = u256.from_ints([p[1] for p in pts]).T
-        return (u256.as_i32(bx).to(self.device, non_blocking=True),
-                u256.as_i32(by).to(self.device, non_blocking=True))
+        with tracing.span("vgen.submit.base_points"):
+            pts = [ec.scalar_mult_base_fast(s) for s in scalars]
+            bx = u256.from_ints([p[0] for p in pts]).T
+            by = u256.from_ints([p[1] for p in pts]).T
+            return (u256.as_i32(bx).to(self.device, non_blocking=True),
+                    u256.as_i32(by).to(self.device, non_blocking=True))
 
     def _remaining(self, values: List[int]) -> torch.Tensor:
         return torch.tensor(values, dtype=torch.int32).to(
