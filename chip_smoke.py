@@ -185,7 +185,13 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     super-step (from the two mesh rates) and the all_gather's time;
 33. ``tui.run_tui`` on the card (^1C -c 1) with a screen that records what
     is drawn: the frames show "Device search...", "MATCH #1" and the
-    oracle-confirmed address.
+    oracle-confirmed address;
+34. kernel J (base_advance) at the product's K = 8 windows, ADVANCE_AHEAD
+    super-steps ahead and stride D = 8 x 524288: one launch held to (k +
+    (m + 1) D) G of the native code and to its plain version on the card,
+    then timed with CUDA events (a launch, and a launch over the
+    super-steps it serves: the budget is 50 us a super-step); its launches
+    are those of phase 11's range scan.
 
 Each path's launch counters are set to 0 just before it runs and read just
 after.  Tolerance everywhere: exact (the values are integers).  The line
@@ -352,6 +358,8 @@ def main():
                     for k in list(wrappers)[5:9]})
     sources.update({k: "vgen_tpu_torch/csrc/tables.cu"
                     for k in list(wrappers)[9:]})
+    wrappers["base_advance"] = fused.base_advance
+    sources["base_advance"] = "vgen_tpu_torch/csrc/kernels.cu"
 
     def reset_launches():
         for w in wrappers.values():
@@ -2354,6 +2362,48 @@ def main():
             f"{secs:.1f} s ({len(screen.drawn)} strings drawn); launches {got}")
     finally:
         dist.destroy_process_group()
+
+    # -- 34. kernel J vs plain, timed -----------------------------------------
+    K34, R34 = sc.DEFAULT_K_SUB, sc.ADVANCE_AHEAD
+    D34 = K34 * sc.DEFAULT_DEVICE_BATCH
+    rng34 = random.Random(34)
+    ks34 = [2 + rng34.randrange(ec.N - 2 - R34 * D34) for _ in range(K34)]
+
+    def limbs34(points):
+        return torch.stack([u256.as_i32(u256.from_ints(
+            [p[i] for p in points]).T) for i in (0, 1)]).to(dev)
+
+    bxy34 = limbs34([ec.scalar_mult_base_fast(k) for k in ks34])
+    qs34 = limbs34([ec.scalar_mult_base_fast((m + 1) * D34)
+                    for m in range(R34)]).transpose(0, 1).contiguous()
+    ref34 = torch.zeros((R34, 2, K34, 8), dtype=torch.int32, device=dev)
+    fused.base_advance(bxy34[0], bxy34[1], qs34, ref34)
+    torch.cuda.synchronize()
+    want34 = torch.stack([limbs34([ec.scalar_mult_base_fast(k + (m + 1) * D34)
+                                   for k in ks34]) for m in range(R34)])
+    require(torch.equal(ref34, want34),
+            "kernel J: its rows are not (k + (m + 1) D) G")
+    launches34 = path_launches["range interval"]["base_advance"]
+    require(launches34 > 0, "kernel J: no launch on phase 11's range scan")
+    out34 = torch.empty_like(ref34)
+
+    def plain34():
+        out = torch.empty_like(ref34)
+        fused.base_advance_plain(bxy34[0], bxy34[1], qs34, out)
+        return out
+
+    ms, plain_ms, bms, bby = time_kernel(
+        "base_advance",
+        lambda: fused.base_advance(bxy34[0], bxy34[1], qs34, out34), plain34,
+        ref34, "none: vgen_tpu/scan/scanner.py:428 (host)", launches34, 0,
+        f"K={K34} R={R34}",
+        R34 * K34 * (256 * FE_SQR + 17 * FE_MUL + 6 * FE_ADD),
+        K34 * 64 + R34 * 64 + R34 * K34 * 64, reps=100)
+    log(f"[34] base_advance at K={K34}, R={R34} super-steps ahead, D={D34}: "
+        f"kernel {ms * 1e3:.1f} us a launch, {ms * 1e3 / R34:.1f} us a "
+        f"super-step (budget 50 us), plain {plain_ms:.1f} ms, bound "
+        f"{bms:.5f} ms ({bby}), == (k + (m + 1) D) G and plain; "
+        f"{launches34} launches on phase 11's range scan ({smi})")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

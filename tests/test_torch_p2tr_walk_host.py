@@ -438,6 +438,7 @@ def test_scanner_builds_the_narrow_table_once_for_p2tr(monkeypatch):
                              ("a.{7}$", 0x1000, 0), ("a.{8}$", 0x1000, 0)):
         built.clear()
         passed.clear()
+        scn._routes.clear()  # plan afresh: the scanner keeps its routes
         cfg = ScanConfig(format=P2TR, start=start,
                          end=None if start is None else start + 2047,
                          count=1 if start is None else 0)

@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels with nvcc at first use; load with ctypes.
 
-Each ``.cu`` file in this directory (a "unit": ``kernels`` holds kernel A
-and kernels B to E for the five hash formats, ``p2tr`` kernels F to I,
-``tables`` the table kernels T1 and T2 that build the i*G and ladder tables)
-compiles into its own shared library with a plain C interface, for
+Each ``.cu`` file in this directory (a "unit": ``kernels`` holds kernel A,
+kernels B to E for the five hash formats and kernel J, ``p2tr`` kernels F
+to I, ``tables`` the table kernels T1 and T2 that build the i*G and ladder
+tables) compiles into its own shared library with a plain C interface, for
 ``sm_90a`` (Hopper).  The first ``load`` of a product unit starts one
 nvcc per product unit, all at once, and waits for them.  The probe unit
 (``../probes/probes.cu``, the measurement tools' kernels, which include
@@ -151,6 +151,7 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
         signatures = {
             "kernels": {
                 "vgen_batch_inverse_dx": [p, p, p, p, i, i, i, i, p],
+                "vgen_base_advance": [p, p, p, p, i, i, p],
                 "vgen_range_glv_match": [i, p, p, p, p, p, p, p, i, p, p, i, i,
                                          p],
                 "vgen_range_match": [i, p, p, p, p, p, p, p, i, p, p, i, i, p],

@@ -107,6 +107,21 @@
 //   eip55_symbols in a per-thread array and dfa_walk over the int32 table
 //   (dfa.cuh address_matches), one thread per lane; the variant loops are
 //   not unrolled, to bound the code size of the six inlined encoders.
+//
+// Kernel J, base_advance
+//   No TPU counterpart: the JAX package computes every super-step's base
+//   points on the host (vgen_tpu/scan/scanner.py).
+//   Computes: the bases of the next R super-steps, (k_j + (m + 1) D) G for
+//   m < R, from the K window bases k_j G and the host's cached (m + 1) D
+//   G, one affine add a lane (m, j) (scan_lanes.cuh base_advance_lane);
+//   the scanner copies one super-step's K bases from them at each step.
+//   Bound: latency: one lane's 270-step inversion chain and five field
+//   operations, the R K lanes side by side.
+//   Design: one thread a lane.  A lane's inversion chain takes about 0.1
+//   ms (NVIDIA H100 80GB HBM3), twice the 0.05 ms budget of a super-step
+//   of the product's; computing R super-steps ahead in one launch spreads
+//   it over R of them.  The host holds the scalars and keeps every lane
+//   off the doubling and the point at infinity.
 
 #include "inv_block.cuh"
 #include "match_kernels.cuh"
@@ -123,6 +138,17 @@ __global__ void __launch_bounds__(kBlock)
                   uint32_t* __restrict__ out, uint32_t* __restrict__ scratch,
                   long B, long N, long T, int M, int G) {
   vg::inv_block<kBlock>(vg::DxInput{bx, tx, B}, out, scratch, N, T, M, G);
+}
+
+constexpr int kAdvanceThreads = 32;
+
+__global__ void __launch_bounds__(kAdvanceThreads)
+    base_advance_kernel(const uint32_t* __restrict__ bx,
+                        const uint32_t* __restrict__ by,
+                        const uint32_t* __restrict__ qs,
+                        uint32_t* __restrict__ out, long K, long R) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < R * K) vg::base_advance_lane(bx, by, qs, out, K, e / K, e % K);
 }
 
 }  // namespace
@@ -147,6 +173,20 @@ int vgen_batch_inverse_dx(const void* bx, const void* tx, void* out,
     inv_dx_kernel<512><<<(unsigned)((T + 511) / 512), 512, 0, s>>>(
         bx_, tx_, out_, scratch_, (long)B, N, T, M, G);
   }
+  return (int)cudaGetLastError();
+}
+
+// Kernel J: bx, by (K, 8), qs (R, 2, 8) -> out (R, 2, K, 8), lane (m, j)
+// the base j plus the point m.
+int vgen_base_advance(const void* bx, const void* by, const void* qs,
+                      void* out, int K, int R, void* stream) {
+  if (K < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  const long n = (long)K * R;
+  base_advance_kernel<<<(unsigned)((n + kAdvanceThreads - 1) /
+                                   kAdvanceThreads),
+                        kAdvanceThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)qs,
+      (uint32_t*)out, (long)K, (long)R);
   return (int)cudaGetLastError();
 }
 

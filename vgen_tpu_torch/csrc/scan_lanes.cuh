@@ -140,6 +140,42 @@ VG_FN bool in_intervals(const uint32_t w[W], const uint32_t* lo,
   return hit;
 }
 
+// Kernel J, one lane (m, j): window j's affine base point (bx[j], by[j])
+// ((K, 8) row-major arrays) plus the affine point m of qs ((R, 2, 8): x,
+// then y), by one affine add with its own inversion: lambda = (qy - y) /
+// (qx - x), x' = lambda^2 - x - qx, y' = lambda (x - x') - y, written to
+// out[m][0][j] and out[m][1][j] (out (R, 2, K, 8)).  The caller keeps x !=
+// qx (no doubling, no point at infinity).
+VG_FN void base_advance_lane(const uint32_t* bx, const uint32_t* by,
+                             const uint32_t* qs, uint32_t* out, long K,
+                             long m, long j) {
+  uint32_t x[8], y[8], qx[8], qy[8], t[8], lam[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    x[i] = VG_LDG(bx + j * 8 + i);
+    y[i] = VG_LDG(by + j * 8 + i);
+    qx[i] = VG_LDG(qs + m * 16 + i);
+    qy[i] = VG_LDG(qs + m * 16 + 8 + i);
+  }
+  fe_sub(t, qx, x);
+  fe_inv(t, t);
+  fe_sub(lam, qy, y);
+  fe_mul(lam, lam, t);
+  fe_sqr(t, lam);
+  fe_sub(t, t, x);
+  fe_sub(t, t, qx);  // x'
+  fe_sub(x, x, t);
+  fe_mul(x, lam, x);
+  fe_sub(y, x, y);  // y'
+  uint32_t* ox = out + (m * 2 * K + j) * 8;
+  uint32_t* oy = ox + K * 8;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    ox[i] = t[i];
+    oy[i] = y[i];
+  }
+}
+
 // The affine add of window k's base point and table point b of lane
 // e = k*B + b, from the lane's precomputed inverse of dx = tx - bx:
 // lambda = (ty - by) / dx, x = lambda^2 - bx - tx and, when kWithY,

@@ -25,6 +25,11 @@ One super-step covers K windows of B keys.  Window k adds its base point
 3. ``pack_tail`` (PyTorch ops): one (K, 34) int32 row per window,
    [count, ops, 16 highest matching indices, their masks].
 
+Every super-step but the first of a scan takes its K base points from the
+card: kernel J, ``base_advance``, computes those of the next R super-steps
+in one launch (``scan/scanner.py`` ``DeviceScanner._base_points``), and
+the scanner replays steps 1-3 as one CUDA graph.
+
 P2TR (no GLV: the tweak rebinds the key) runs four more kernels between
 kernel A and the pack (``csrc/p2tr.cu``):
 
@@ -189,6 +194,49 @@ def batch_inverse_dx(bx: torch.Tensor, tx: torch.Tensor,
 
 
 batch_inverse_dx.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel J: the next super-steps' window bases, computed on the card
+# ---------------------------------------------------------------------------
+
+
+def base_advance_plain(bx: torch.Tensor, by: torch.Tensor, qs: torch.Tensor,
+                       out: torch.Tensor) -> None:
+    """Plain version of kernel J.  bx, by (K, 8) int32: the window bases,
+    the affine points k_j G; qs (R, 2, 8) int32: affine points Q_m (x,
+    then y) -> out (R, 2, K, 8) int32, written in place: out[m] the bases
+    k_j G + Q_m, one affine add a lane (m, j), each with its own inversion
+    (Q_m = (m + 1) D G: the next R super-steps' bases).  The caller keeps
+    every k_j G off Q_m and -Q_m."""
+    K, R = bx.shape[0], qs.shape[0]
+    x1, y1 = (u256.to_i64(t).T.reshape(8, 1, K).expand(8, R, K)
+              for t in (bx, by))
+    q64 = u256.to_i64(qs)
+    qx, qy = (q64[:, i].T.reshape(8, R, 1).expand(8, R, K) for i in (0, 1))
+    x3, y3 = curve.affine_add_batch(x1, y1, qx, qy,
+                                    field.inv(field.sub(qx, x1)))
+    out.copy_(u256.to_i32(torch.stack([x3, y3])).permute(2, 0, 3, 1))
+
+
+def base_advance(bx: torch.Tensor, by: torch.Tensor, qs: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """Kernel J (``csrc/kernels.cu``): same contract as
+    ``base_advance_plain``, one launch of one thread a lane on the current
+    stream."""
+    if _all_cpu(bx, by, qs, out):
+        return base_advance_plain(bx, by, qs, out)
+    K, R = bx.shape[0], qs.shape[0]
+    dev = _check_cuda("base_advance", [
+        ("bx", bx, (K, 8)), ("by", by, (K, 8)), ("qs", qs, (R, 2, 8)),
+        ("out", out, (R, 2, K, 8))])
+    with torch.cuda.device(dev):
+        _launch("kernels", "base_advance", bx.data_ptr(), by.data_ptr(),
+                qs.data_ptr(), out.data_ptr(), K, R, _stream(dev))
+    base_advance.launches += 1
+
+
+base_advance.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1152,13 +1200,35 @@ def fused_p2tr_scan_step(bx, by, tx, ty, dfa_table, dfa_accept, start,
     return pack_tail(mask, remaining, 1)
 
 
-# every kernel wrapper with a ``launches`` counter
-LAUNCH_COUNTED = (batch_inverse_dx, range_glv_match, range_match, dfa_match,
-                  glv_dfa_match, p2tr_ladder, batch_inverse_chain,
-                  p2tr_finish_range, p2tr_finish_match, table_grow,
-                  table_affine)
+# every kernel wrapper with a ``launches`` counter, and those that also
+# count each table form's (``forms``)
+LAUNCH_COUNTED = (batch_inverse_dx, base_advance, range_glv_match,
+                  range_match, dfa_match, glv_dfa_match, p2tr_ladder,
+                  batch_inverse_chain, p2tr_finish_range, p2tr_finish_match,
+                  table_grow, table_affine)
+FORM_COUNTED = (dfa_match, p2tr_finish_match)
 
 
 def launch_count() -> int:
     """Kernel launches so far: the sum of the wrappers' ``launches``."""
     return sum(w.launches for w in LAUNCH_COUNTED)
+
+
+def launch_counters() -> dict:
+    """{(wrapper, None): launches, (wrapper, form): launches of that form}
+    of every counter, for a CUDA graph to add again at each replay what its
+    capture counted (``add_launches``)."""
+    counts = {(w, None): w.launches for w in LAUNCH_COUNTED}
+    counts.update({(w, f): n for w in FORM_COUNTED
+                   for f, n in w.forms.items()})
+    return counts
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (``launch_counters``' form; negative takes away) to
+    the counters."""
+    for (w, form), n in counts.items():
+        if form is None:
+            w.launches += n
+        else:
+            w.forms[form] += n

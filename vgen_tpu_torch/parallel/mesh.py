@@ -11,11 +11,14 @@ covers keys base + j*B + 1 .. base + (j+1)*B.
 Each device runs ``DeviceScanner``'s route for its k_sub windows (the same
 intervals, prefilter rule and narrow DFA table; ``fused.fused_*_step``,
 kernels A-I on the card), each distinct device holding one copy of the i*G
-table and, for P2TR, of the ladder table.  The rows of this process's
-devices are stacked on its first device and all-gathered over
-torch.distributed (the reference's ``jax.lax.all_gather``), so every
-process drains every window; the gathered rows go to pinned host memory
-behind a CUDA event.  The drain is ``SuperStepScan``'s.
+table and, for P2TR, of the ladder table.  Each device's base points
+move on by kernel J through its ``DeviceScanner._base_points`` (a stride
+of the mesh's windows); its steps launch one by one, with no CUDA graph.
+The rows of this process's devices are stacked on its first device and
+all-gathered over torch.distributed (the reference's
+``jax.lax.all_gather``), so every process drains every window; the
+gathered rows go to pinned host memory behind a CUDA event.  The drain is
+``SuperStepScan``'s.
 
 Unlike the reference, which draws a random scan's start in every process
 (``mesh.py:616``, ``:641``) and so maps the other processes' rows to the
@@ -153,8 +156,8 @@ class MeshScanner(SuperStepScan):
             scanner = self._scanners[dev]
             win = slice(first + d * K, first + (d + 1) * K)
             with _on(dev):
-                remaining = (scanner._full_remaining if rems is None
-                             else scanner._remaining(rems[win]))
+                remaining = scanner._remaining_for(
+                    None if rems is None else rems[win])
                 bx, by = scanner._base_points(base_scalars[win])
                 rows.append(routes[dev][0](bx, by, remaining))
         dev0 = self.devices[0]

@@ -11,20 +11,25 @@ the key).  Range scans (``config.start`` set) check each key of
 [start, end] once, report matches in key order, and keep a checkpoint when
 ``config.checkpoint`` is set.
 
-The host computes one base point per window, keeps a few super-steps in
-flight (each packed result is copied into pinned host memory behind a CUDA
-event), and re-derives every reported key with the native code before it
-counts as a match.  ``SuperStepScan`` holds that loop, which
-``parallel/mesh.py`` ``MeshScanner`` shares; ``scan_with_progress`` takes
-the mesh where ``ScanConfig.mesh`` or the auto rule says so.  A device
-failure raises: nothing falls back to the CPU scanner.
+A scan's first super-step takes one base point per window from the host;
+every later one moves them on by kernel J on the card, and replays the
+route's kernels and pack tail as one CUDA graph over the same static
+inputs (``DeviceScanner._base_points``, ``_submit``).  The loop keeps a few
+super-steps in flight (each packed result is copied into pinned host
+memory behind a CUDA event), and re-derives every reported key with the
+native code before it counts as a match.  ``SuperStepScan`` holds that
+loop, which ``parallel/mesh.py`` ``MeshScanner`` shares;
+``scan_with_progress`` takes the mesh where ``ScanConfig.mesh`` or the
+auto rule says so.  A device failure raises: nothing falls back to the CPU
+scanner.
 """
 
 from __future__ import annotations
 
+import hashlib
 import secrets
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import List, Optional
 
 import numpy as np
@@ -49,6 +54,24 @@ from vgen_tpu_torch.scan import tables
 DEFAULT_DEVICE_BATCH = 524_288
 DEFAULT_K_SUB = 8
 GLV_KEYS = fused.GLV_KEYS
+# super-steps of base points one launch of kernel J computes ahead: a
+# lane's inversion chain takes about 0.1 ms on an H100, so one launch a
+# super-step would add that to each (PERF.md)
+ADVANCE_AHEAD = 16
+# routes (with their graphs) and strides D (with their points (m + 1) D G)
+# a scanner keeps; the least recently used goes first
+ROUTE_CACHE = 4
+Q_CACHE = 4
+
+
+def _keep(cache: OrderedDict, key, value, size: int):
+    """Put ``value`` last in the LRU ``cache``, dropping the oldest beyond
+    ``size``; -> value."""
+    cache[key] = value
+    cache.move_to_end(key)
+    while len(cache) > size:
+        cache.popitem(last=False)
+    return value
 
 
 class SuperStepScan:
@@ -254,6 +277,43 @@ def _copy_to_host(packed: torch.Tensor):
     return host, done
 
 
+def _affine_limbs(points):
+    """Affine points -> (x, y) (len, 8) int32."""
+    return (u256.as_i32(u256.from_ints([p[0] for p in points]).T),
+            u256.as_i32(u256.from_ints([p[1] for p in points]).T))
+
+
+class _StepGraph:
+    """A route's packed step over a scanner's static inputs (bx, by,
+    remaining), captured once as a CUDA graph (its kernels and the pack
+    tail) and replayed into the same output; on the CPU, the step called
+    again on the same inputs.  The capture runs nothing, so each replay
+    adds to ``fused``'s launch counters what the capture counted."""
+
+    def __init__(self, step, bx, by, remaining):
+        self.step, self.args = step, (bx, by, remaining)
+        self.graph = None
+        if bx.device.type != "cuda":
+            return
+        before = fused.launch_counters()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(bx.device), torch.cuda.graph(
+                self.graph, capture_error_mode="relaxed"):
+            self.out = step(*self.args)
+        after = fused.launch_counters()
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+        fused.add_launches({k: -n for k, n in self.launches.items()})
+
+    def replay(self) -> torch.Tensor:
+        if self.graph is None:
+            return self.step(*self.args)
+        with torch.cuda.device(self.out.device):
+            self.graph.replay()
+        fused.add_launches(self.launches)
+        return self.out
+
+
 def _host_rows(handle) -> np.ndarray:
     host, done = handle
     with tracing.span("vgen.drain.wait"):
@@ -286,6 +346,29 @@ class DeviceScanner(SuperStepScan):
             self.wt = (tables.ladder_table(self.device)
                        if fmt == AddressFormat.P2TR else None)
         self._full_remaining = self._remaining([batch_size] * k_sub)
+        # the static inputs of the step graphs: the windows' base points
+        # (x, y) and their remaining keys
+        self._bxy = torch.zeros((2, k_sub, 8), dtype=torch.int32,
+                                device=self.device)
+        self._bx, self._by = self._bxy
+        self._rem = self._full_remaining.clone()
+        self._rem_full = True
+        # kernel J's output: the bases of the next ADVANCE_AHEAD super-steps
+        self._ahead = torch.zeros((ADVANCE_AHEAD, 2, k_sub, 8),
+                                  dtype=torch.int32, device=self.device)
+        self._q = OrderedDict()       # D -> (m + 1) D G, (ADVANCE_AHEAD, 2, 8)
+        self._routes = OrderedDict()  # what a route checks -> its steps
+        self._graphs = OrderedDict()  # a route's step -> its _StepGraph
+        self._forget()
+
+    def _forget(self) -> None:
+        """Seed the next super-step's bases on the host: _held, the scalars
+        whose points _bx, _by hold once the work queued so far has run;
+        _d, the stride of their last advance on the card; _ahead_next, the
+        row of _ahead that follows them at that stride (ADVANCE_AHEAD:
+        none)."""
+        self._held = self._d = None
+        self._ahead_next = ADVANCE_AHEAD
 
     def _plan_intervals(self, pattern: Pattern, config: ScanConfig):
         """Exact intervals for an anchored literal; else the longest-prefix
@@ -306,48 +389,131 @@ class DeviceScanner(SuperStepScan):
             return pf_ivs
         return None
 
+    @staticmethod
+    def _host_limbs(scalars: List[int]):
+        """(bx, by) (len, 8) int32 of scalar * G on the host (native)."""
+        return _affine_limbs([ec.scalar_mult_base_fast(s) for s in scalars])
+
     def _base_points(self, scalars: List[int]):
-        """(bx, by) (K, 8) int32 of scalar * G on the device."""
+        """(bx, by) (K, 8) int32 of scalar * G on the device.
+
+        A call of ``self.windows`` scalars returns the step graphs' static
+        inputs.  Where each scalar is the one they hold plus one D, D is
+        the stride of their last advance (any D after a host seed) and not
+        0 mod n, the card supplies them: kernel J computes the next
+        ADVANCE_AHEAD super-steps' bases at once (from the native (m + 1) D
+        G, cached per D), and each super-step copies its row.  Else, or
+        where a lane of J would meet the doubling or the point at infinity
+        (a held k = 0 or +-(m + 1) D mod n), the host computes them into
+        the buffers: a scan's first super-step, a random scan's wrap, a
+        jump.  A call of another length (overflow recovery) gets fresh
+        tensors from the host and leaves the buffers alone."""
         with tracing.span("vgen.submit.base_points"):
-            pts = [ec.scalar_mult_base_fast(s) for s in scalars]
-            bx = u256.from_ints([p[0] for p in pts]).T
-            by = u256.from_ints([p[1] for p in pts]).T
-            return (u256.as_i32(bx).to(self.device, non_blocking=True),
-                    u256.as_i32(by).to(self.device, non_blocking=True))
+            if len(scalars) != self.windows:
+                bx, by = self._host_limbs(scalars)
+                return (bx.to(self.device, non_blocking=True),
+                        by.to(self.device, non_blocking=True))
+            d = self._stride(scalars)
+            if d is None:
+                bx, by = self._host_limbs(scalars)
+                self._bx.copy_(bx, non_blocking=True)
+                self._by.copy_(by, non_blocking=True)
+                self._ahead_next = ADVANCE_AHEAD
+                tracing.count("base_points_host")
+            else:
+                if self._ahead_next == ADVANCE_AHEAD:
+                    fused.base_advance(self._bx, self._by,
+                                       self._q_points(d % ec.N), self._ahead)
+                    self._ahead_next = 0
+                self._bxy.copy_(self._ahead[self._ahead_next],
+                                non_blocking=True)
+                self._ahead_next += 1
+                tracing.count("base_points_card")
+            self._held, self._d = list(scalars), d
+            return self._bx, self._by
+
+    def _stride(self, scalars: List[int]) -> Optional[int]:
+        """The D of ``_base_points``' bases from the card, or None."""
+        held = self._held
+        if held is None:
+            return None
+        d = scalars[0] - held[0]
+        if (d % ec.N == 0 or self._d not in (None, d)
+                or any(s - h != d for s, h in zip(scalars, held))):
+            return None
+        if self._ahead_next < ADVANCE_AHEAD:
+            return d  # J's lanes were checked when it computed them
+        bad = {m * d % ec.N for m in range(-ADVANCE_AHEAD, ADVANCE_AHEAD + 1)}
+        return None if any(h % ec.N in bad for h in held) else d
+
+    def _q_points(self, d: int) -> torch.Tensor:
+        """(m + 1) d G for m < ADVANCE_AHEAD as (ADVANCE_AHEAD, 2, 8) int32
+        (x, then y) on the device, cached."""
+        q = self._q.get(d)
+        if q is None:
+            pts = [ec.scalar_mult_base_fast((m + 1) * d)
+                   for m in range(ADVANCE_AHEAD)]
+            q = torch.stack(_affine_limbs(pts), dim=1).to(
+                self.device, non_blocking=True)
+        return _keep(self._q, d, q, Q_CACHE)
 
     def _remaining(self, values: List[int]) -> torch.Tensor:
         return torch.tensor(values, dtype=torch.int32).to(
             self.device, non_blocking=True)
 
+    def _remaining_for(self, rems: Optional[List[int]]) -> torch.Tensor:
+        """The windows' remaining keys on the device: the shared full one
+        where every window is full (rems None, or all B)."""
+        if rems is None or all(r == self.batch for r in rems):
+            return self._full_remaining
+        return self._remaining(rems)
+
     def _route(self, pattern: Pattern, config: ScanConfig, glv: bool):
         """(packed step, mask step, exact) for the pattern's route, each
         step taking (bx, by, remaining).  exact: a device hit is a match
-        of the full pattern (False for prefilter intervals)."""
-        dev = self.device
+        of the full pattern (False for prefilter intervals).  The steps are
+        kept by what they check (the intervals or the DFA, glv, exact), so
+        a later scan of the same route replays the graph an earlier one
+        captured.  A new route starts its scan's bases from the host."""
+        self._forget()
         ivs = self._plan_intervals(pattern, config)
         if ivs is not None:
             n_slots = pipeline.interval_slot_count(len(ivs))
             lo_np, hi_np = pipeline.intervals_to_words(
                 ivs, n_words=pipeline.INTERVAL_WORDS[self.fmt],
                 n_slots=n_slots)
-            lo, hi = u256.as_i32(lo_np).to(dev), u256.as_i32(hi_np).to(dev)
-
-            def step(bx, by, rem):
-                return fused.fused_range_scan_step(
-                    self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv,
-                    self.wt)
-
-            def mask_step(bx, by, rem):
-                return fused.fused_range_mask_step(
-                    self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv,
-                    self.wt)
-
-            return (step, mask_step,
-                    pattern.exact_match_intervals(self.fmt) is not None)
+            exact = pattern.exact_match_intervals(self.fmt) is not None
+            key = ("intervals", glv, exact, lo_np.tobytes(), hi_np.tobytes())
+            route = self._routes.get(key) or self._interval_route(
+                lo_np, hi_np, glv, exact)
+            return _keep(self._routes, key, route, ROUTE_CACHE)
         dfa = pattern.device_dfa(self.fmt)
-        table = torch.from_numpy(dfa.table.astype(np.int32)).to(dev)
-        accept = torch.from_numpy(dfa.accept.astype(np.int32)).to(dev)
-        start = int(dfa.start)
+        table_np = dfa.table.astype(np.int32)
+        accept_np = dfa.accept.astype(np.int32)
+        key = ("dfa", glv, table_np.shape, int(dfa.start), hashlib.sha256(
+            table_np.tobytes() + accept_np.tobytes()).hexdigest())
+        route = self._routes.get(key) or self._dfa_route(
+            table_np, accept_np, int(dfa.start), glv)
+        return _keep(self._routes, key, route, ROUTE_CACHE)
+
+    def _interval_route(self, lo_np, hi_np, glv: bool, exact: bool):
+        dev = self.device
+        lo, hi = u256.as_i32(lo_np).to(dev), u256.as_i32(hi_np).to(dev)
+
+        def step(bx, by, rem):
+            return fused.fused_range_scan_step(
+                self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv, self.wt)
+
+        def mask_step(bx, by, rem):
+            return fused.fused_range_mask_step(
+                self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv, self.wt)
+
+        return step, mask_step, exact
+
+    def _dfa_route(self, table_np, accept_np, start: int, glv: bool):
+        dev = self.device
+        table = torch.from_numpy(table_np).to(dev)
+        accept = torch.from_numpy(accept_np).to(dev)
         # the narrow table of kernel D (range scans of the hash formats)
         # or I (P2TR, which takes no GLV keys), once per pattern, where the
         # kernel takes the shared form; kernel E reads the int32 table
@@ -373,10 +539,34 @@ class DeviceScanner(SuperStepScan):
 
     def _submit(self, route, base_scalars: List[int],
                 rems: Optional[List[int]]):
-        remaining = (self._full_remaining if rems is None
-                     else self._remaining(rems))
+        """The route's step over the static inputs: copied into them only
+        what differs from what they hold (another tensor, such as a
+        partial window's remaining keys), then its graph replayed."""
+        remaining = self._remaining_for(rems)
         bx, by = self._base_points(base_scalars)
-        return _copy_to_host(route[0](bx, by, remaining))
+        if bx is not self._bx or by is not self._by:
+            self._bx.copy_(bx, non_blocking=True)
+            self._by.copy_(by, non_blocking=True)
+            self._forget()
+        full = remaining is self._full_remaining
+        if not (full and self._rem_full):
+            self._rem.copy_(remaining, non_blocking=True)
+        self._rem_full = full
+        return _copy_to_host(self._replay(route[0]))
+
+    def _replay(self, step) -> torch.Tensor:
+        """The step's first super-step runs eagerly (it loads what its
+        kernels need) and then captures its graph; later ones replay it."""
+        graph = self._graphs.get(step)
+        if graph is None:
+            out = step(self._bx, self._by, self._rem)
+            _keep(self._graphs, step,
+                  _StepGraph(step, self._bx, self._by, self._rem),
+                  ROUTE_CACHE)
+            return out
+        self._graphs.move_to_end(step)
+        tracing.count("graph_replays")
+        return graph.replay()
 
     def _window_indices(self, route, base_scalar: int, rem: int):
         """{index: mask} of every match in one window: the packed row holds
