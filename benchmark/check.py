@@ -6,8 +6,8 @@ compares the numbers its file gives limits for (``"limits"``):
 
 - ``wrong_matches``: reported matches (all, or a sample drawn from the seed
   with the first and the last) whose key the reference derives to another
-  address or WIF, or whose address the pattern (Python's ``re``) does not
-  match;
+  address or WIF, or to none, or whose address the pattern (Python's
+  ``re``) does not match;
 - ``match_deficit``: -log10 of the Poisson chance of finding no more matches
   than were reported, for the keys the scan counted at the reference's
   share of matching addresses.  Left-out keys, lost answers and answers
@@ -16,20 +16,24 @@ compares the numbers its file gives limits for (``"limits"``):
   ``out_of_range`` (keys outside the keys the scan counted, from the
   start) and ``checkpoint_off`` (the checkpoint file does not record the
   keys counted and the matches reported).
+
+The derivation and the share are the configuration's format's
+(``reference/formats/<format>.py``), so a cell of another format adds
+that file and edits none here.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import math
 import random
 import re
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from benchmark.reference import address as ref
-from benchmark.reference.density import p2pkh_share
-
+FORMATS = Path(__file__).resolve().parent / "reference" / "formats"
 COUNTS = ("wrong_matches", "out_of_order", "out_of_range", "checkpoint_off")
 
 
@@ -52,12 +56,27 @@ def _sample(items: List, n: int, rng: random.Random) -> List:
     return [items[0]] + middle + [items[-1]]
 
 
+def format_reference(fmt: str):
+    """The plain reference of the address format ``fmt``:
+    ``reference/formats/<fmt>.py``, with ``derive_many`` and ``share``."""
+    path = FORMATS / f"{fmt}.py"
+    if not path.is_file():
+        raise FileNotFoundError(
+            f"no reference for the address format {fmt!r}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(f"benchmark_format_{fmt}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def judge(cell: dict, inputs, matches, operations: int, seed: int,
           checkpoint: Optional[dict]) -> Dict[str, float]:
     """The numbers the cell compares (the keys of its ``"limits"``) for one
     run.  ``matches``: (key, address, wif) as the scan reported them, in
     its order; ``checkpoint``: the checkpoint file's contents after the
     scan (range scans)."""
+    ref = format_reference(cell["config_spec"]["format"])
     rng = random.Random(f"check:{seed}")
     pat = re.compile(inputs.pattern)
     keys = [k for k, _, _ in matches]
@@ -65,13 +84,12 @@ def judge(cell: dict, inputs, matches, operations: int, seed: int,
 
     def wrong_matches():
         picked = _sample(matches, cell.get("sample_matches", 512), rng)
-        derived = ref.p2pkh_many([k for k, _, _ in picked])
-        return sum(1 for (k, a, w), r in zip(picked, derived)
-                   if a != r or w != ref.wif_compressed(k)
-                   or not pat.search(r))
+        derived = ref.derive_many([k for k, _, _ in picked])
+        return sum(1 for (_, a, w), r in zip(picked, derived)
+                   if r is None or (a, w) != r or not pat.search(r[0]))
 
     def match_deficit():
-        share = float(p2pkh_share(inputs.pattern))
+        share = float(ref.share(inputs.pattern))
         return poisson_deficit(len(matches), operations * share)
 
     def checkpoint_off():

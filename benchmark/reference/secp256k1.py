@@ -60,6 +60,11 @@ def to_affine(p: Jacobian) -> Optional[Affine]:
     return x * zi2 % P, y * zi2 * zi % P
 
 
+def add(p: Affine, q: Affine) -> Optional[Affine]:
+    """p + q of two affine points; None for the point at infinity."""
+    return to_affine(_add_affine((p[0], p[1], 1), q))
+
+
 def multiply(k: int) -> Affine:
     """k * G for 1 <= k < N, by double-and-add from the top bit."""
     if not 1 <= k < N:

@@ -29,10 +29,12 @@ def _run(tmp_path, monkeypatch, name, fault, seed):
     return json.loads(out.getvalue().splitlines()[-1])
 
 
-@pytest.mark.parametrize("name", ["tiny-vanity.prefix", "tiny-range.prefix"])
+@pytest.mark.parametrize("name", ["tiny-vanity.prefix", "tiny-range.prefix",
+                                  "tiny-p2tr.prefix"])
 def test_sound(tmp_path, monkeypatch, name):
     line = _run(tmp_path, monkeypatch, name, "none", 2**31 + 99)
     assert line["correct"] is True, line["checks"]
+    assert line["checks"]["wrong_matches"]["value"] == 0
 
 
 # a fault that checks half of each window and counts all of it fails by the
@@ -52,6 +54,8 @@ HALF = [(name, "half_batch", "match_deficit", seed)
     ("tiny-range.prefix", "reordered", "out_of_order", 2**31 + 7),
     ("tiny-range.prefix", "undercount", "out_of_range", 2**31 + 7),
     ("tiny-range.prefix", "undercount", "checkpoint_off", 2**31 + 7),
+    ("tiny-p2tr.prefix", "index_shift", "match_deficit", 2**31 + 7),
+    ("tiny-p2tr.prefix", "altered_match", "wrong_matches", 2**31 + 7),
 ] + HALF)
 def test_fault_fails(tmp_path, monkeypatch, name, fault, failing, seed):
     line = _run(tmp_path, monkeypatch, name, fault, seed)

@@ -123,6 +123,10 @@ def test_density_counts():
 def test_reference_loads_nothing_of_the_program():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import benchmark.reference.address, benchmark.reference.density\n"
+            "import benchmark.reference.formats.p2pkh\n"
+            "import benchmark.reference.formats.p2tr\n"
+            "from benchmark import check\n"
+            "check.format_reference('p2pkh'), check.format_reference('p2tr')\n"
             "import benchmark.check, benchmark.traffic, benchmark.work\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('vgen_tpu_torch', 'vgen_tpu', 'jax', 'jaxlib', 'flax', "

@@ -17,6 +17,11 @@ TINY_CONFIGS = {
                    "range_end": "0x7fffffffffffffffff",
                    "chunk_keys": 2**20, "checkpoint": True,
                    "checkpoint_save_interval_s": 5.0},
+    # kernels A, F, G and H's plain versions, on the ladder table's host
+    # build (npz-cached); a super-step's time hardly grows with the batch,
+    # so 256 puts enough keys in a window for the control to fail
+    "tiny-p2tr": {"format": "p2tr", "batch": 256, "k_sub": 2,
+                  "in_flight": 4},
 }
 TINY_CELLS = {
     # ^1K: about 8 matches a window of 32 positions, 6 keys each, under
@@ -30,7 +35,13 @@ TINY_CELLS = {
                           "sample_matches": 64,
                           "limits": {"wrong_matches": 0, "out_of_order": 0,
                                      "out_of_range": 0, "checkpoint_off": 0,
-                                     "match_deficit": 5.0}}
+                                     "match_deficit": 5.0}},
+    # ^bc1pq: 1 key in 32, about 8 matches a window of 256, under the 16 a
+    # packed row reports
+    "tiny-p2tr.prefix": {"config": "tiny-p2tr", "chips": 1,
+                         "scan": "random", "pattern": "^bc1pq",
+                         "limits": {"wrong_matches": 0,
+                                    "match_deficit": 5.0}},
 }
 
 
