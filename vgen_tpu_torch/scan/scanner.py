@@ -343,8 +343,14 @@ class DeviceScanner(SuperStepScan):
         # scanner: on a card by the table kernels, on the CPU from npz
         with tracing.stage("start.tables"):
             self.tx, self.ty = tables.ig_table(batch_size, self.device)
-            self.wt = (tables.ladder_table(self.device)
-                       if fmt == AddressFormat.P2TR else None)
+            self.wt = None
+            if fmt == AddressFormat.P2TR:
+                # the ladder table's build as a stage of its own: on a card
+                # it starts once the i*G table is built and ends once it is
+                self._synchronize()
+                with tracing.stage("start.tables.ladder"):
+                    self.wt = tables.ladder_table(self.device)
+                    self._synchronize()
         self._full_remaining = self._remaining([batch_size] * k_sub)
         # the static inputs of the step graphs: the windows' base points
         # (x, y) and their remaining keys
