@@ -67,14 +67,24 @@ class CheckpointManager:
         self._match_keys = [hex(k) for k in state["match_keys"]]
         return state
 
+    def set_matches(self, match_keys: List[int]) -> None:
+        """Replace the match list, once before a scan's first ``advance``:
+        after a resume, the stored keys that still derive."""
+        self._match_keys = [hex(k) for k in match_keys]
+
     # -- saving ------------------------------------------------------------
 
     def advance(self, next_key: int, operations: int,
-                match_keys: List[int], force: bool = False) -> None:
-        """Record that keys below ``next_key`` are fully scanned."""
+                new_keys: List[int], force: bool = False) -> None:
+        """Record that keys below ``next_key`` are fully scanned, and append
+        ``new_keys``, the matches found since the previous call, in key
+        order: a call costs its new keys, not all the scan has found."""
+        from vgen_tpu_torch import tracing
+
         self._next_key = next_key
         self._operations = operations
-        self._match_keys = [hex(k) for k in match_keys]
+        self._match_keys.extend(hex(k) for k in new_keys)
+        tracing.count("checkpoint_matches", len(new_keys))
         now = time.time()
         if force or now - self._last_save >= self.save_interval:
             self._write()

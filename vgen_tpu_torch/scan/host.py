@@ -211,9 +211,12 @@ def _scan_cpu_native(
                     ga = _derive_checked(k, config.format, gen)
                     if ga is not None:
                         matches.append(ga)
+            # each chunk appends its own matches to the resumed ones
+            ckpt.set_matches([int(m.hex, 16) for m in matches])
     else:
         key = None
         end_key = None
+    n_saved = len(matches)  # the matches in the checkpoint's list
 
     while not stop.is_set() and len(matches) < target:
         if is_range:
@@ -244,7 +247,9 @@ def _scan_cpu_native(
                 matches.append(ga)
         if ckpt is not None and n_ops == n:
             # a stopped chunk is partially scanned -- don't advance past it
-            ckpt.advance(start + n, ops, [int(m.hex, 16) for m in matches])
+            ckpt.advance(start + n, ops,
+                         [int(m.hex, 16) for m in matches[n_saved:]])
+            n_saved = len(matches)
         if progress_callback:
             progress_callback(ops)
 

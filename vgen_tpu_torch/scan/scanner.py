@@ -144,6 +144,10 @@ class SuperStepScan:
             if ga is not None and pattern.matches(ga.address):
                 matches.append(ga)
             next_key = 2
+        if ckpt is not None:
+            # each drain appends its own matches to these: the resumed ones
+            # that still derive, and key 1's
+            ckpt.set_matches([int(m.hex, 16) for m in matches])
 
         def submit() -> bool:
             nonlocal next_key, steps
@@ -242,7 +246,8 @@ class SuperStepScan:
                 # keys up to the end of this super-step's last window are done
                 with tracing.span("vgen.drain.checkpoint"):
                     ckpt.advance(min(base_scalars[-1] + B + 1, end_key + 1),
-                                 total_ops, [int(m.hex, 16) for m in matches])
+                                 total_ops,
+                                 [int(m.hex, 16) for m in matches[n_matches:]])
 
         while not stop.is_set() and len(matches) < target:
             while len(inflight) < max(1, config.in_flight):
