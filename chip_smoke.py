@@ -168,8 +168,11 @@ Phases (each prints what it found; any failure raises and exits non-zero):
     "cuda:0"]``: the card holds both devices of the mesh) against
     DeviceScanner over the same windows and base scalars: the ^1C
     interval route with GLV (A, B), a random DFA route (c[a4]t: A, E) and a
-    range DFA route ([Cc][a4]t, the last window partial: A, D); packed
-    rows equal, matches > 0, each kernel launched once per device slot;
+    range DFA route ([Cc][a4]t, the last window partial: A, D), two
+    super-batches each (the second replays every slot's CUDA graph, and
+    the two slots on one card share one graph output); packed rows equal,
+    matches > 0, each kernel launched once per device slot and
+    super-batch;
 31. an NCCL process group at world size 1 (tcp://127.0.0.1, the card
     machine has one card), then ``scan_with_progress(mesh=True)``: ^1C
     -c 1 (A, B), P2TR ^bc1pqq -c 1 (A, F, G, H) and qq$ -c 1 (A, F, G,
@@ -2140,29 +2143,37 @@ def main():
                 ("c[a4]t", True, ("glv_dfa_match",), None),
                 ("[Cc][a4]t", False, ("dfa_match",), W30 * B30 - 1000)):
             pat30 = Pattern(src)
-            reset_launches()
-            got30 = mesh30.drain_packed(mesh30.submit_super_batch(
-                pat30, base30, rem30, allow_glv=allow_glv))
-            got = read_launches()
             cfg30 = ScanConfig(format=fmt, start=None if allow_glv else 1)
-            step30 = ref30._route(pat30, cfg30, glv=allow_glv)[0]
+            step30 = ref30._plan(pat30, cfg30, glv=allow_glv).step
             rems30 = ([B30] * W30 if rem30 is None else
                       [max(0, min(B30, rem30 - j * B30)) for j in range(W30)])
-            want30 = step30(*ref30._base_points(
-                [base30 + j * B30 for j in range(W30)]),
-                ref30._remaining(rems30)).cpu().numpy()
-            require(got30.shape == want30.shape
-                    and np.array_equal(got30, want30),
-                    f"mesh {devs30} {src}: rows differ from DeviceScanner's")
-            require(int(got30[:, 0].sum()) > 0, f"mesh {devs30} {src}: no "
-                    "matching lane checks nothing")
-            require(got["batch_inverse_dx"] == len(devs30) and all(
-                got[k] == len(devs30) for k in kern30),
+            # two super-batches: the first runs each device's route eagerly
+            # (or replays it, on the second entry of a repeated device), the
+            # second replays every device's graph; a repeated device's
+            # entries share one graph output
+            bases30 = [base30 + i * W30 * B30 for i in range(2)]
+            wants30 = [step30(*ref30._base_points(
+                [b + j * B30 for j in range(W30)]),
+                ref30._remaining(rems30)).cpu().numpy() for b in bases30]
+            reset_launches()
+            for i30, (b30, want30) in enumerate(zip(bases30, wants30)):
+                got30 = mesh30.drain_packed(mesh30.submit_super_batch(
+                    pat30, b30, rem30, allow_glv=allow_glv))
+                require(got30.shape == want30.shape
+                        and np.array_equal(got30, want30),
+                        f"mesh {devs30} {src} super-batch {i30}: rows "
+                        "differ from DeviceScanner's")
+                require(int(got30[:, 0].sum()) > 0, f"mesh {devs30} {src}: "
+                        "no matching lane checks nothing")
+            got = read_launches()
+            require(got["batch_inverse_dx"] == 2 * len(devs30) and all(
+                got[k] == 2 * len(devs30) for k in kern30),
                 f"mesh {devs30} {src}: launches {got}")
             log(f"[30] mesh on {devs30}, k_sub={K30}, B={B30}: {src} "
                 f"({'random' if allow_glv else 'range'}) rows == "
-                f"DeviceScanner's over {W30} windows ({int(got30[:, 0].sum())}"
-                f" matching positions); launches {got}")
+                f"DeviceScanner's over 2 x {W30} windows "
+                f"({int(got30[:, 0].sum())} matching positions in the "
+                f"second); launches {got}")
         del mesh30, ref30
     torch.cuda.empty_cache()
 

@@ -146,7 +146,7 @@ def test_seam_chooses_card_or_host(scanner, counts):
         ("wrap to a low start", 10 ** 6, "host"),
         ("successor", 10 ** 6 + stride, "card"),
     ]
-    scanner._route(Pattern("^1C"), ScanConfig(start=1), glv=False)
+    scanner._plan(Pattern("^1C"), ScanConfig(start=1), glv=False)
     for what, b, where in calls:
         scalars = _windows(b)
         counts.clear()
@@ -180,7 +180,7 @@ def test_seam_chooses_card_or_host(scanner, counts):
 
 def test_a_new_route_seeds_on_the_host(scanner, counts):
     scanner._base_points(_windows(5000))
-    scanner._route(Pattern("^1C"), ScanConfig(start=1), glv=False)
+    scanner._plan(Pattern("^1C"), ScanConfig(start=1), glv=False)
     counts.clear()
     scanner._base_points(_windows(5000 + K * B))
     assert counts == {"base_points_host": 1}
@@ -194,7 +194,7 @@ def test_chain_of_super_steps_bit_equal(scanner, counts, monkeypatch):
     monkeypatch.setattr(fused, "base_advance",
                         lambda *a, _f=fused.base_advance: launches.append(
                             _f(*a)))
-    scanner._route(Pattern("^1C"), ScanConfig(start=1), glv=False)
+    scanner._plan(Pattern("^1C"), ScanConfig(start=1), glv=False)
     base = ec.N // 3
     counts.clear()
     for step in range(24):
@@ -214,7 +214,7 @@ class EagerScanner(sc.DeviceScanner):
         bx, by = (t.to(self.device) for t in self._host_limbs(base_scalars))
         rem = self._remaining(rems if rems is not None
                               else [self.batch] * self.windows)
-        return sc._copy_to_host(route[0](bx, by, rem))
+        return sc._copy_to_host(route.step(bx, by, rem))
 
 
 class FixedStart:
@@ -290,8 +290,8 @@ def test_random_scan_over_a_wrap_equals_eager(scanner, counts, pattern):
 def test_partial_windows_feed_the_remaining_keys(scanner):
     """A super-step with partial windows copies its remaining keys into the
     static input; the next full one restores the shared full ones."""
-    scanner._route(Pattern("^1C"), ScanConfig(start=1), glv=False)
-    route = (lambda bx, by, rem: rem.clone(), None)
+    scanner._plan(Pattern("^1C"), ScanConfig(start=1), glv=False)
+    route = sc._Route(lambda bx, by, rem: rem.clone(), None, True)
     rows = [scanner._submit(route, _windows(10 ** 7 + i * K * B), rems)[0]
             for i, rems in enumerate((None, [B, B, 9, 0], None,
                                       [B] * K))]
@@ -339,7 +339,7 @@ def test_graph_rows_equal_eager_rows(dev, pattern, start):
     Bc = 4096
     scn = sc.DeviceScanner(FMT, Bc, dev, k_sub=K)
     glv = start is None
-    route = scn._plan(Pattern(pattern), ScanConfig(start=start), glv)[0]
+    route = scn._plan(Pattern(pattern), ScanConfig(start=start), glv)
     launches = fused.launch_count()
     matches = 0
     for i in range(4):
@@ -349,11 +349,12 @@ def test_graph_rows_equal_eager_rows(dev, pattern, start):
         done.synchronize()
         bx, by = (t.to(dev) for t in scn._host_limbs(scalars))
         rem = torch.tensor(rems or [Bc] * K, dtype=torch.int32, device=dev)
-        want = route[0](bx, by, rem).cpu().numpy()
+        want = route.step(bx, by, rem).cpu().numpy()
         assert np.array_equal(host.numpy(), want), i
         matches += int(want[:, 0].sum())
     assert matches > 0
-    assert len(scn._graphs) == 1
+    # one cached route, which holds its graph
+    assert list(scn._routes.values()) == [route] and route.graph is not None
     # one kernel J launch, and every super-step's A and match kernel
     # counted, the replays' included (plus the four eager checks')
     assert fused.launch_count() - launches == 1 + 2 * 4 + 2 * 4

@@ -3,12 +3,14 @@ reference's tests/test_mesh.py, on the port alone.  The mesh is two CPU
 devices of four windows each, the reference's eight windows of a
 super-batch; the scans run the kernels' plain versions."""
 
+import collections
 import re
 
 import pytest
 import torch
 
 from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
+from vgen_tpu_torch import tracing
 from vgen_tpu_torch.crypto.address import AddressFormat, AddressGenerator
 from vgen_tpu_torch.ops import pipeline
 from vgen_tpu_torch.parallel.mesh import MeshScanner
@@ -157,6 +159,27 @@ def test_mesh_scan_pipelined_matches_unpipelined(mesh):
                         end=0x54000 + 4 * W * BATCH - 1, in_flight=n)
         assert [m.hex for m in res.matches] == [_hex(key)]
         assert res.operations == 4 * W * BATCH
+
+
+def test_mesh_replays_each_devices_route(monkeypatch):
+    """Each device's windows of a super-step run through its scanner's
+    route, as on one card: every call after the route's first replays its
+    graph (on the CPU, runs its step again) and counts ``graph_replays``.
+    The two devices share one scanner, so the first super-step's second
+    device replays already.  The counters are read through
+    ``tracing.count`` with no profiler: a profiler counts the same calls,
+    and its stop takes tens of seconds over the plain versions' many small
+    ops."""
+    counters = collections.Counter()
+    monkeypatch.setattr(tracing, "count",
+                        lambda name, n=1: counters.update({name: n}))
+    mesh = MeshScanner(P2PKH, BATCH, ["cpu"] * 2, k_sub=1)
+    steps, windows = 3, mesh.windows
+    res = mesh.scan(Pattern("^1Qq"), count=0, start=0x9000,
+                    end=0x9000 + steps * windows * BATCH - 1)
+    assert res.operations == steps * windows * BATCH
+    assert counters["super_steps"] == steps
+    assert counters["graph_replays"] == mesh.n_devices * steps - 1
 
 
 @pytest.mark.parametrize("mesh_opt,scanner_type", [

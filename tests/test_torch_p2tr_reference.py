@@ -59,9 +59,9 @@ def reference():
 
 def _route(scanner):
     """The route the last scan took: its cache key's kind, and for
-    intervals whether they are exact."""
-    key = next(reversed(scanner._routes))
-    return (key[0], key[2]) if key[0] == "intervals" else (key[0],)
+    intervals whether the route is exact."""
+    key, route = next(reversed(scanner._routes.items()))
+    return (key[0], route.exact) if key[0] == "intervals" else (key[0],)
 
 
 @pytest.mark.parametrize("case", list(CASES))

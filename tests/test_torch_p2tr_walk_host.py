@@ -442,12 +442,12 @@ def test_scanner_builds_the_narrow_table_once_for_p2tr(monkeypatch):
         cfg = ScanConfig(format=P2TR, start=start,
                          end=None if start is None else start + 2047,
                          count=1 if start is None else 0)
-        step, mask_step, _ = scn._route(Pattern(src), cfg, glv=False)
+        route = scn._plan(Pattern(src), cfg, glv=False)
         assert len(built) == want
         bx = torch.zeros((2, 8), dtype=torch.int32)
         for rem in ([256, 256], [256, 100]):
-            step(bx, bx, torch.tensor(rem, dtype=torch.int32))
-        mask_step(bx, bx, torch.tensor([256, 256], dtype=torch.int32))
+            route.rows(bx, bx, torch.tensor(rem, dtype=torch.int32))
+        route.mask_step(bx, bx, torch.tensor([256, 256], dtype=torch.int32))
         assert len(built) == want and len(passed) == 3
         assert all((n is None) == (want == 0) for n in passed)
         if want:

@@ -565,7 +565,7 @@ def test_scanner_builds_the_narrow_table_once(monkeypatch):
         cfg = ScanConfig(format=P2PKH, start=start,
                          end=None if start is None else start + 2047,
                          count=1 if start is None else 0)
-        step, _, _ = scn._route(Pattern(src), cfg, glv=start is None)
+        step = scn._plan(Pattern(src), cfg, glv=start is None).step
         assert len(built) == want
         bx = torch.zeros((2, 8), dtype=torch.int32)
         if start is not None:

@@ -437,6 +437,17 @@ def narrow_dfa(dfa_table: torch.Tensor, dfa_accept: torch.Tensor):
     return table, (dfa_accept != 0).to(torch.uint8).contiguous()
 
 
+def step_narrow(fmt, glv: bool, dfa_table, dfa_accept):
+    """``fused_scan_step``'s ``narrow`` for this DFA: its ``narrow_dfa``
+    where the step's kernel (D, or I for P2TR) takes the shared form; else
+    None (kernel E, GLV keys of the hash formats, reads the int32 table).
+    Built once per pattern: inside a CUDA graph, every replay rebuilds it."""
+    if (glv and fmt != AddressFormat.P2TR
+            or dfa_form(*dfa_table.shape) != "shared"):
+        return None
+    return narrow_dfa(dfa_table, dfa_accept)
+
+
 def _check_dfa_inputs(entry: str, fmt, args):
     """Check kernel D's or E's inputs -> (format code, device)."""
     code = _match_code(entry, fmt)

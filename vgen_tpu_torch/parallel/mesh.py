@@ -8,12 +8,11 @@ across hosts).  One super-step covers ``n_devices * k_sub`` windows of B
 keys: window j belongs to global device j // k_sub, slot j % k_sub, and
 covers keys base + j*B + 1 .. base + (j+1)*B.
 
-Each device runs ``DeviceScanner``'s route for its k_sub windows (the same
-intervals, prefilter rule and narrow DFA table; ``fused.fused_*_step``,
-kernels A-I on the card), each distinct device holding one copy of the i*G
-table and, for P2TR, of the ladder table.  Each device's base points
-move on by kernel J through its ``DeviceScanner._base_points`` (a stride
-of the mesh's windows); its steps launch one by one, with no CUDA graph.
+Each distinct device holds one ``DeviceScanner`` (one copy of the i*G
+table and, for P2TR, of the ladder table) and runs its k_sub windows as
+one card does, through its ``_rows``: the same route (intervals, prefilter
+rule, narrow DFA table; kernels A-I on the card) as a replayed CUDA graph,
+its base points moved on by kernel J (a stride of the mesh's windows).
 The rows of this process's devices are stacked on its first device and
 all-gathered over torch.distributed (the reference's
 ``jax.lax.all_gather``), so every process drains every window; the
@@ -50,6 +49,11 @@ from vgen_tpu_torch.scan.scanner import (
     _copy_to_host,
     _host_rows,
 )
+
+
+class _MeshRoute(dict):
+    """{device: its ``DeviceScanner``'s route of a pattern}, and their
+    ``exact``."""
 
 
 def _on(dev: torch.device):
@@ -140,32 +144,31 @@ class MeshScanner(SuperStepScan):
     # -- SuperStepScan -----------------------------------------------------
 
     def _plan(self, pattern: Pattern, config: ScanConfig, glv: bool):
-        routes = {}
+        routes = _MeshRoute()
         for dev, scanner in self._scanners.items():
             with _on(dev):
-                step, mask_step, exact = scanner._route(pattern, config, glv)
-            routes[dev] = (step, mask_step)
-        return routes, exact
+                routes[dev] = scanner._plan(pattern, config, glv)
+        routes.exact = routes[self.devices[0]].exact
+        return routes
 
     def _submit(self, routes, base_scalars: List[int],
                 rems: Optional[List[int]]):
         K = self.k_sub
         first = self.rank * len(self.devices) * K  # this process's windows
+        dev0 = self.devices[0]
         rows = []
         for d, dev in enumerate(self.devices):
-            scanner = self._scanners[dev]
             win = slice(first + d * K, first + (d + 1) * K)
             with _on(dev):
-                remaining = scanner._remaining_for(
-                    None if rems is None else rems[win])
-                bx, by = scanner._base_points(base_scalars[win])
-                rows.append(routes[dev][0](bx, by, remaining))
-        dev0 = self.devices[0]
+                # copied before the device's next replay: a device listed
+                # twice shares one scanner, and so one graph output
+                rows.append(self._scanners[dev]._rows(
+                    routes[dev], base_scalars[win],
+                    None if rems is None else rems[win]).to(dev0, copy=True))
         with _on(dev0):
             # the event is recorded after the gather, so the copy to the
             # host waits for the gathered rows
-            local = torch.cat([r.to(dev0) for r in rows])
-            return _copy_to_host(self._gather(local))
+            return _copy_to_host(self._gather(torch.cat(rows)))
 
     def _window_indices(self, routes, base_scalar: int, rem: int):
         """Overflow recovery: the window again, through the mask step on
@@ -204,9 +207,9 @@ class MeshScanner(SuperStepScan):
         ``remaining_total - j*B`` of them.  ``allow_glv`` (random scans):
         the GLV formats check six keys per position."""
         glv = allow_glv and self.fmt in pipeline.GLV_FORMATS
-        # _route reads only whether the config is a range scan
+        # _plan reads only whether the config is a range scan
         config = ScanConfig(format=self.fmt, start=None if allow_glv else 1)
-        routes = self._plan(pattern, config, glv)[0]
+        routes = self._plan(pattern, config, glv)
         B, W = self.batch, self.windows
         rems = (None if remaining_total is None else
                 [max(0, min(B, remaining_total - j * B)) for j in range(W)])

@@ -11,17 +11,18 @@ the key).  Range scans (``config.start`` set) check each key of
 [start, end] once, report matches in key order, and keep a checkpoint when
 ``config.checkpoint`` is set.
 
-A scan's first super-step takes one base point per window from the host;
-every later one moves them on by kernel J on the card, and replays the
-route's kernels and pack tail as one CUDA graph over the same static
-inputs (``DeviceScanner._base_points``, ``_submit``).  The loop keeps a few
+A pattern's route on a card is one ``_Route``, which owns its CUDA graph.
+``DeviceScanner._rows`` runs a card's windows of a super-step: the first
+takes one base point per window from the host, every later one moves them
+on by kernel J on the card and replays the route's kernels and pack tail
+as one graph over the same static inputs.  The loop keeps a few
 super-steps in flight (each packed result is copied into pinned host
 memory behind a CUDA event), and re-derives every reported key with the
 native code before it counts as a match.  ``SuperStepScan`` holds that
-loop, which ``parallel/mesh.py`` ``MeshScanner`` shares;
-``scan_with_progress`` takes the mesh where ``ScanConfig.mesh`` or the
-auto rule says so.  A device failure raises: nothing falls back to the CPU
-scanner.
+loop, which ``parallel/mesh.py`` ``MeshScanner`` shares, each of its
+devices through its own ``_rows``; ``scan_with_progress`` takes the mesh
+where ``ScanConfig.mesh`` or the auto rule says so.  A device failure
+raises: nothing falls back to the CPU scanner.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ from vgen_tpu_torch.scan.host import (
     ScanConfig,
     ScanResult,
     StopFlag,
-    _derive_checked,
     _derive_checked_bulk,
     _scan_cpu,
 )
@@ -80,9 +80,10 @@ class SuperStepScan:
     One super-step covers ``self.windows`` consecutive windows of
     ``self.batch`` keys; window j covers keys base+1 .. base+B with base =
     next_key - 1 + j*B.  A subclass places the windows on its devices:
-    ``_plan`` (the pattern's route and whether a device hit is a match of
-    the full pattern), ``_submit`` (launch one super-step and start its
-    (windows, 34) packed rows' copy to the host: ``_copy_to_host``),
+    ``_plan`` (the pattern's route, whose ``exact`` says whether a device
+    hit is a match of the full pattern), ``_submit`` (launch one
+    super-step and start its (windows, 34) packed rows' copy to the host:
+    ``_copy_to_host``),
     ``_window_indices`` (every match of one window, for overflow
     recovery), ``_random_start``, ``_checkpoint`` and ``_synchronize``.
     """
@@ -104,7 +105,7 @@ class SuperStepScan:
         glv = not is_range and self.fmt in pipeline.GLV_FORMATS
         mult = GLV_KEYS if glv else 1
         with tracing.stage("start.route"):
-            route, exact = self._plan(pattern, config, glv)
+            route = self._plan(pattern, config, glv)
         B, W = self.batch, self.windows
 
         gen = AddressGenerator(self.fmt)
@@ -119,10 +120,8 @@ class SuperStepScan:
             if state is not None:
                 next_key = max(next_key, state["next_key"])
                 total_ops = state["operations"]
-                for key in state["match_keys"]:
-                    ga = _derive_checked(key, self.fmt, gen)
-                    if ga is not None:
-                        matches.append(ga)
+                matches.extend(ga for _, ga in _derive_checked_bulk(
+                    state["match_keys"], self.fmt, gen) if ga is not None)
         else:
             # one random start per scan, then consecutive windows
             next_key = self._random_start(ec.N - 3)
@@ -231,7 +230,7 @@ class SuperStepScan:
                                 key0, pairs[idx], parity_exact=(
                                     self.fmt in pipeline.GLV_EXACT_Y))
                             if glv else [key0])
-                    if exact:
+                    if route.exact:
                         guaranteed += sum(1 for b in pairs.values() if b)
             n_matches = len(matches)
             with tracing.span("vgen.drain.derive"):
@@ -288,35 +287,47 @@ def _affine_limbs(points):
             u256.as_i32(u256.from_ints([p[1] for p in points]).T))
 
 
-class _StepGraph:
-    """A route's packed step over a scanner's static inputs (bx, by,
-    remaining), captured once as a CUDA graph (its kernels and the pack
-    tail) and replayed into the same output; on the CPU, the step called
-    again on the same inputs.  The capture runs nothing, so each replay
-    adds to ``fused``'s launch counters what the capture counted."""
+class _Route:
+    """A pattern's route on one scanner's device: its packed ``step`` and
+    ``mask_step`` (overflow recovery), each taking (bx, by, remaining), and
+    ``exact``: a device hit is a match of the full pattern (False for
+    prefilter intervals).  ``rows`` runs the step eagerly once over the
+    scanner's static inputs (the same tensors at every call), then on a
+    card captures it as a CUDA graph that later calls replay into one
+    output; on the CPU each call runs it again.  The capture runs nothing,
+    so each replay adds to ``fused``'s launch counters what it counted."""
 
-    def __init__(self, step, bx, by, remaining):
-        self.step, self.args = step, (bx, by, remaining)
+    def __init__(self, step, mask_step, exact: bool):
+        self.step, self.mask_step, self.exact = step, mask_step, exact
         self.graph = None
-        if bx.device.type != "cuda":
-            return
-        before = fused.launch_counters()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(bx.device), torch.cuda.graph(
-                self.graph, capture_error_mode="relaxed"):
-            self.out = step(*self.args)
-        after = fused.launch_counters()
-        self.launches = {k: n - before[k] for k, n in after.items()
-                         if n != before[k]}
-        fused.add_launches({k: -n for k, n in self.launches.items()})
+        self._first = True
 
-    def replay(self) -> torch.Tensor:
+    def rows(self, bx, by, rem) -> torch.Tensor:
+        if self._first:
+            out = self.step(bx, by, rem)
+            if bx.device.type == "cuda":
+                self._capture(bx, by, rem)
+            self._first = False
+            return out
+        tracing.count("graph_replays")
         if self.graph is None:
-            return self.step(*self.args)
+            return self.step(bx, by, rem)
         with torch.cuda.device(self.out.device):
             self.graph.replay()
         fused.add_launches(self.launches)
         return self.out
+
+    def _capture(self, bx, by, rem) -> None:
+        before = fused.launch_counters()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(bx.device), torch.cuda.graph(
+                graph, capture_error_mode="relaxed"):
+            self.out = self.step(bx, by, rem)
+        after = fused.launch_counters()
+        self.launches = {k: n - before[k] for k, n in after.items()
+                         if n != before[k]}
+        fused.add_launches({k: -n for k, n in self.launches.items()})
+        self.graph = graph
 
 
 def _host_rows(handle) -> np.ndarray:
@@ -357,7 +368,7 @@ class DeviceScanner(SuperStepScan):
                     self.wt = tables.ladder_table(self.device)
                     self._synchronize()
         self._full_remaining = self._remaining([batch_size] * k_sub)
-        # the static inputs of the step graphs: the windows' base points
+        # the static inputs of the routes' graphs: the windows' base points
         # (x, y) and their remaining keys
         self._bxy = torch.zeros((2, k_sub, 8), dtype=torch.int32,
                                 device=self.device)
@@ -368,8 +379,7 @@ class DeviceScanner(SuperStepScan):
         self._ahead = torch.zeros((ADVANCE_AHEAD, 2, k_sub, 8),
                                   dtype=torch.int32, device=self.device)
         self._q = OrderedDict()       # D -> (m + 1) D G, (ADVANCE_AHEAD, 2, 8)
-        self._routes = OrderedDict()  # what a route checks -> its steps
-        self._graphs = OrderedDict()  # a route's step -> its _StepGraph
+        self._routes = OrderedDict()  # what a route checks -> its _Route
         self._forget()
 
     def _forget(self) -> None:
@@ -408,7 +418,7 @@ class DeviceScanner(SuperStepScan):
     def _base_points(self, scalars: List[int]):
         """(bx, by) (K, 8) int32 of scalar * G on the device.
 
-        A call of ``self.windows`` scalars returns the step graphs' static
+        A call of ``self.windows`` scalars returns the routes' static
         inputs.  Where each scalar is the one they hold plus one D, D is
         the stride of their last advance (any D after a host seed) and not
         0 mod n, the card supplies them: kernel J computes the next
@@ -472,20 +482,11 @@ class DeviceScanner(SuperStepScan):
         return torch.tensor(values, dtype=torch.int32).to(
             self.device, non_blocking=True)
 
-    def _remaining_for(self, rems: Optional[List[int]]) -> torch.Tensor:
-        """The windows' remaining keys on the device: the shared full one
-        where every window is full (rems None, or all B)."""
-        if rems is None or all(r == self.batch for r in rems):
-            return self._full_remaining
-        return self._remaining(rems)
-
-    def _route(self, pattern: Pattern, config: ScanConfig, glv: bool):
-        """(packed step, mask step, exact) for the pattern's route, each
-        step taking (bx, by, remaining).  exact: a device hit is a match
-        of the full pattern (False for prefilter intervals).  The steps are
-        kept by what they check (the intervals or the DFA, glv, exact), so
-        a later scan of the same route replays the graph an earlier one
-        captured.  A new route starts its scan's bases from the host."""
+    def _plan(self, pattern: Pattern, config: ScanConfig,
+              glv: bool) -> _Route:
+        """The pattern's ``_Route``, kept (with its graph) by what it checks:
+        the intervals or the DFA, glv, exact.  A new route starts its scan's
+        bases from the host."""
         self._forget()
         ivs = self._plan_intervals(pattern, config)
         if ivs is not None:
@@ -519,18 +520,13 @@ class DeviceScanner(SuperStepScan):
             return fused.fused_range_mask_step(
                 self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv, self.wt)
 
-        return step, mask_step, exact
+        return _Route(step, mask_step, exact)
 
     def _dfa_route(self, table_np, accept_np, start: int, glv: bool):
         dev = self.device
         table = torch.from_numpy(table_np).to(dev)
         accept = torch.from_numpy(accept_np).to(dev)
-        # the narrow table of kernel D (range scans of the hash formats)
-        # or I (P2TR, which takes no GLV keys), once per pattern, where the
-        # kernel takes the shared form; kernel E reads the int32 table
-        narrow = (fused.narrow_dfa(table, accept)
-                  if not glv and fused.dfa_form(*table.shape) == "shared"
-                  else None)
+        narrow = fused.step_narrow(self.fmt, glv, table, accept)
 
         def step(bx, by, rem):
             return fused.fused_scan_step(self.fmt, bx, by, self.tx, self.ty,
@@ -542,48 +538,30 @@ class DeviceScanner(SuperStepScan):
                 self.fmt, bx, by, self.tx, self.ty, table, accept, start, rem,
                 glv, self.wt, narrow)
 
-        return step, mask_step, True
+        return _Route(step, mask_step, True)
 
-    def _plan(self, pattern: Pattern, config: ScanConfig, glv: bool):
-        step, mask_step, exact = self._route(pattern, config, glv)
-        return (step, mask_step), exact
-
-    def _submit(self, route, base_scalars: List[int],
-                rems: Optional[List[int]]):
-        """The route's step over the static inputs: copied into them only
-        what differs from what they hold (another tensor, such as a
-        partial window's remaining keys), then its graph replayed."""
-        remaining = self._remaining_for(rems)
+    def _rows(self, route: _Route, base_scalars: List[int],
+              rems: Optional[List[int]]) -> torch.Tensor:
+        """One super-step's (windows, 34) packed rows on the device: the
+        static inputs fed (``_base_points``; the remaining keys copied only
+        where they differ, rems None: all full), then ``route.rows``."""
         bx, by = self._base_points(base_scalars)
-        if bx is not self._bx or by is not self._by:
-            self._bx.copy_(bx, non_blocking=True)
-            self._by.copy_(by, non_blocking=True)
-            self._forget()
-        full = remaining is self._full_remaining
+        full = rems is None or all(r == self.batch for r in rems)
         if not (full and self._rem_full):
-            self._rem.copy_(remaining, non_blocking=True)
+            self._rem.copy_(self._full_remaining if full
+                            else self._remaining(rems), non_blocking=True)
         self._rem_full = full
-        return _copy_to_host(self._replay(route[0]))
+        return route.rows(bx, by, self._rem)
 
-    def _replay(self, step) -> torch.Tensor:
-        """The step's first super-step runs eagerly (it loads what its
-        kernels need) and then captures its graph; later ones replay it."""
-        graph = self._graphs.get(step)
-        if graph is None:
-            out = step(self._bx, self._by, self._rem)
-            _keep(self._graphs, step,
-                  _StepGraph(step, self._bx, self._by, self._rem),
-                  ROUTE_CACHE)
-            return out
-        self._graphs.move_to_end(step)
-        tracing.count("graph_replays")
-        return graph.replay()
+    def _submit(self, route: _Route, base_scalars: List[int],
+                rems: Optional[List[int]]):
+        return _copy_to_host(self._rows(route, base_scalars, rems))
 
-    def _window_indices(self, route, base_scalar: int, rem: int):
+    def _window_indices(self, route: _Route, base_scalar: int, rem: int):
         """{index: mask} of every match in one window: the packed row holds
         only TOP_K indices."""
         bx, by = self._base_points([base_scalar])
-        mask = route[1](bx, by, self._remaining([rem]))
+        mask = route.mask_step(bx, by, self._remaining([rem]))
         mask = mask[0].cpu().numpy()
         return {int(i): int(mask[i]) for i in np.nonzero(mask)[0]}
 
