@@ -145,7 +145,33 @@ void h_chain(const uint32_t* v, uint32_t* out, uint32_t* scratch, int N,
              int M) {
   const long T = N / M;
   for (long t = 0; t < T; t++)
-    vg::inv_chain_thread(vg::GuardedInput{v, N}, out, scratch, N, T, M, t);
+    vg::inv_chain_thread(vg::GuardedInput{v, N, T}, out, N,
+                         vg::Scratch{scratch}, M, t);
+}
+// kernel A's chains, one inversion each: dx of bx (K, 8), tx (8, B)
+void h_dx_chain(const uint32_t* bx, const uint32_t* tx, uint32_t* out,
+                uint32_t* scratch, int K, int B, int M) {
+  const long N = (long)K * B, T = N / M;
+  for (long t = 0; t < T; t++)
+    vg::inv_chain_thread(vg::DxInput(bx, tx, B, T), out, N,
+                         vg::Scratch{scratch}, M, t);
+}
+// per element e < n of (8, n): the inverse by divsteps
+void h_inv_divsteps(const uint32_t* a, uint32_t* r, int n) {
+  for (long e = 0; e < n; e++) {
+    uint32_t x[8];
+    vg::fe_load(x, a, n, e);
+    vg::fe_inv(x, x);
+    vg::fe_store(r, n, e, x);
+  }
+}
+// kernels A and G's schedule of T chains in blocks of `block` on a card of
+// sms SMs -> blocks, rounds a block, all rounds
+void h_inv_schedule(long T, int block, int sms, long* got) {
+  const vg::InvSchedule s = vg::inv_schedule(T, block, sms);
+  got[0] = s.blocks;
+  got[1] = s.per;
+  got[2] = s.rounds;
 }
 void h_p2tr_finish(int dfa_route, const uint32_t* X, const uint32_t* Z,
                    const uint32_t* zi, const int32_t* ok, const uint32_t* lo,
@@ -274,6 +300,9 @@ def lib(tmp_path_factory):
                        ("h_ladder", [p] * 9 + [i, i]),
                        ("h_ladder_affine", [p] * 6 + [i]),
                        ("h_chain", [p, p, p, i, i]),
+                       ("h_dx_chain", [p, p, p, p, i, i, i]),
+                       ("h_inv_divsteps", [p, p, i]),
+                       ("h_inv_schedule", [ctypes.c_long, i, i, p]),
                        ("h_eip55", [p, p, i]), ("h_script_hash", [p, p, i]),
                        ("h_keccak", [p, i]), ("h_xy", [p, p, p, p, i]),
                        ("h_p2tr_finish", [i] + [p] * 6 + [i, p, p, i, i, p, p,
@@ -630,6 +659,101 @@ def test_chain_equal_plain(lib):
     np.testing.assert_array_equal(out, _u32(want))
     got = u256.to_ints(out)
     assert [got[i] for i in (0, 17, 95)] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("M", [1, 2, 8, 16, 64, 512])
+def test_chain_lengths_equal_plain(lib, M):
+    """Kernel G's chains of M elements each (512 of them in one chain),
+    with zeros at lanes 0, 31 and 511: bit-equal to the plain version."""
+    rng = np.random.default_rng(35)
+    v = _rand_fe(rng, 512)
+    v[:, [0, 31, 511]] = 0
+    out, scratch = _out_like(v), _out_like(v)
+    lib.h_chain(_ptr(_u32(v)), _ptr(out), _ptr(scratch), 512, M)
+    np.testing.assert_array_equal(out,
+                                  _u32(fused.batch_inverse_chain_plain(v)))
+
+
+# (K, B, M): chains of T = K B / M strided by T, which steps (k, b) by
+# additions and reloads bx[k] when k moves: T < B, T = B, T > B (several
+# windows a step), B not a power of two (T = 3 B / 2 with a wrap of b
+# every other step), and one element a chain
+DX_CHAINS = [(2, 96, 4), (3, 100, 3), (4, 60, 2), (4, 90, 8), (2, 50, 1),
+             (6, 40, 4)]
+
+
+@pytest.mark.parametrize("shape", DX_CHAINS, ids=lambda s: "k{}b{}m{}".format(*s))
+def test_dx_chain_equals_plain(lib, shape):
+    """Kernel A's chains over windows of B keys, B no power of two, with a
+    doubling lane (dx = 0, its inverse 1) in the last window: bit-equal to
+    the plain version."""
+    K, B, M = shape
+    rng = np.random.default_rng(36)
+    bx_i = [int.from_bytes(rng.bytes(32), "big") % ec.P for _ in range(K)]
+    tx_i = [int.from_bytes(rng.bytes(32), "big") % ec.P for _ in range(B)]
+    tx_i[B // 3] = bx_i[K - 1]
+    bx = u256.as_i32(u256.from_ints(bx_i).T.copy())
+    tx = u256.as_i32(u256.from_ints(tx_i))
+    out = np.zeros((8, K * B), np.uint32)
+    scratch = np.zeros_like(out)
+    lib.h_dx_chain(_ptr(_u32(bx)), _ptr(_u32(tx)), _ptr(out), _ptr(scratch),
+                   K, B, M)
+    np.testing.assert_array_equal(out, _u32(fused.batch_inverse_dx_plain(bx,
+                                                                         tx)))
+    assert u256.to_ints(out)[(K - 1) * B + B // 3] == 1
+
+
+def test_inv_divsteps_equals_pow(lib):
+    """The blocks' inversion by divsteps on edge values (0 -> 0, 1, p - 1,
+    powers of two, values with long runs of ones or zeros) and random ones:
+    x^(p - 2) mod p."""
+    rng = np.random.default_rng(37)
+    edge = (0, 1, 2, 3, ec.P - 1, ec.P - 2, ec.P - 977, 1 << 255, 1 << 32,
+            (1 << 32) + 977, (1 << 224) - 1, (1 << 255) - 19, 0xFFFFFFFF)
+    a = _rand_fe(rng, 500, edge)
+    out = _out_like(a)
+    lib.h_inv_divsteps(_ptr(_u32(a)), _ptr(out), 500)
+    assert u256.to_ints(out) == [pow(x, ec.P - 2, ec.P)
+                                 for x in u256.to_ints(_u32(a))]
+
+
+# (T, sms): the product's 262144 chains of 16 at K = 8, B = 524288 and the
+# tables' 32768 and 34816 at (16, 32), on 132 SMs; a round past the
+# slots; single chains; a card of one SM; 100000 chains on 7 SMs
+SCHEDULES = [(262144, 132), (32768, 132), (34816, 132), (132 * 512 + 1, 132),
+             (1, 132), (4096, 1), (100000, 7)]
+
+
+@pytest.mark.parametrize("case", SCHEDULES, ids=lambda c: "t{}sms{}".format(*c))
+def test_inv_schedule_equals_the_launchers(lib, case):
+    """``fused.inv_schedule`` gives the grid the launchers compute
+    (``scan_lanes.cuh`` ``inv_schedule`` over rounds of ``INV_BLOCK``):
+    the blocks, the rounds a block walks; every round walked once, all
+    blocks in one wave, one an SM."""
+    T, sms = case
+    got = np.zeros(3, np.int64)
+    lib.h_inv_schedule(T, fused.INV_BLOCK, sms, _ptr(got))
+    s = fused.inv_schedule(T, 1, 256, sms=sms)
+    assert (s.blocks, s.rounds) == (got[0], got[1])
+    rounds = got[2]
+    assert rounds == -(-T // fused.INV_BLOCK)
+    assert s.blocks <= sms
+    walked = [-(-(rounds - b) // s.blocks) for b in range(s.blocks)]
+    assert sum(walked) == rounds and max(walked) == s.rounds
+    assert min(walked) >= s.rounds - 1
+
+
+def test_schedule_overlaps_at_the_products_n_not_the_tables():
+    """At the product's geometry the blocks hold several groups each, so
+    the tree warp inverts while the chains run; the tables' Z (the i*G
+    table's 524288 points, the 16-bit ladder table's 557056) at
+    ``TABLE_INV_GEOMETRY`` fit one round a block, today's schedule."""
+    prod = fused.inv_schedule(8 * 524288, sms=132)
+    assert prod.groups >= 2 and prod.rounds >= 2 and prod.overlapped
+    for n in (524288, 557056):
+        t = fused.inv_schedule(n, *fused.TABLE_INV_GEOMETRY, sms=132)
+        assert t.rounds == 1 and not t.overlapped
+    assert not fused.inv_schedule(8 * 524288, 8, 1, sms=132).overlapped
 
 
 @pytest.fixture(scope="module")

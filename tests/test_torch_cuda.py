@@ -419,6 +419,102 @@ def test_inversion_geometry_equals_plain(dev, geometry):
     assert torch.equal(got_g.cpu(), fused.batch_inverse_chain_plain(v))
 
 
+def _schedule_shape(case, sms):
+    """(K, B, M, G, short) of a schedule case on a card of sms SMs (a
+    block an SM): short, whether a last block walks a round fewer than the
+    others.  At B = 4096 and M = 16 a window is half a round of 512
+    chains."""
+    three = 2 * sms + (2 if (2 * sms + 2) % 3 else 1)  # rounds
+    return {"one_round_8_groups": (2, 4096, 16, 32, False),
+            "two_rounds_last_short": (2 * (sms + 1), 4096, 16, 256, True),
+            "three_rounds_last_short": (2 * three, 4096, 16, 256, True),
+            "product": (8, 524288) + fused.INV_GEOMETRY + (False,),
+            "product_chain16": (8, 524288, 16, 256, False)}[case]
+
+
+@pytest.mark.parametrize("case", ["one_round_8_groups", "two_rounds_last_short",
+                                  "three_rounds_last_short", "product",
+                                  "product_chain16"])
+def test_inversion_schedule_equals_plain(dev, case):
+    """Kernels A and G over persistent blocks that walk one round (of 16
+    groups of 32), two and three rounds with the last block a round short,
+    and the product's N = 4194304 (on 132 SMs two rounds a block at
+    INV_GEOMETRY, four at chains of 16): bit-equal to their plain versions
+    (run on the card), zero lanes guarded to 1."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k, b, m, g, short = _schedule_shape(case, sms)
+    sched = fused.inv_schedule(k * b, m, g, sms=sms)
+    rounds = -(-(k * b // fused._chain_len(k * b, m)) // fused.INV_BLOCK)
+    assert (sched.blocks * sched.rounds > rounds) == short
+    rng = np.random.default_rng(509)
+    bx = u256.as_i32(u256.from_ints(
+        [int.from_bytes(rng.bytes(32), "big") % ec.P for _ in range(k)]).T)
+    tx = _random_limbs(rng, b)
+    tx[:, 123] = bx[k - 1]  # a zero-dx lane in the last window
+    bx, tx = bx.to(dev), tx.to(dev)
+    got = fused.batch_inverse_dx(bx, tx, chain=m, group=g)
+    want = fused.batch_inverse_dx_plain(bx, tx)
+    assert torch.equal(got, want)
+    assert want[:, (k - 1) * b + 123].tolist() == [1] + [0] * 7
+    v = want.clone()
+    v[:, [0, 95, k * b - 1]] = 0
+    got_g = fused.batch_inverse_chain(v, chain=m, group=g)
+    assert torch.equal(got_g, fused.batch_inverse_chain_plain(v))
+
+
+@pytest.mark.parametrize("shape", [(8, 100000) + fused.INV_GEOMETRY,
+                                   (8, 300000) + fused.INV_GEOMETRY,
+                                   (6, 100000, 4, 32)],
+                         ids=["one_round", "two_rounds", "three_rounds"])
+def test_inversion_partial_warps_equal_plain(dev, shape):
+    """Kernels A and G where B is no power of two and the chain count T is
+    no multiple of 32 (T = 25000, 75000, 150000), so the last round ends
+    inside a warp that then reaches the named barriers diverged; blocks of
+    one round, and (on a card of fewer than 147 SMs) of two and three:
+    bit-equal to their plain versions (run on the card), zero lanes guarded
+    to 1."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k, b, m, g = shape
+    n = k * b
+    assert (n // fused._chain_len(n, m)) % 32
+    sched = fused.inv_schedule(n, m, g, sms=sms)
+    assert sched.rounds >= {(8, 100000): 1, (8, 300000): 2}.get((k, b), 3)
+    rng = np.random.default_rng(511)
+    bx = u256.as_i32(u256.from_ints(
+        [int.from_bytes(rng.bytes(32), "big") % ec.P for _ in range(k)]).T)
+    tx = _random_limbs(rng, b)
+    tx[:, b - 7] = bx[k - 1]  # a zero-dx lane in the last window
+    bx, tx = bx.to(dev), tx.to(dev)
+    want = fused.batch_inverse_dx_plain(bx, tx)
+    assert torch.equal(fused.batch_inverse_dx(bx, tx, chain=m, group=g), want)
+    assert want[:, n - 7].tolist() == [1] + [0] * 7
+    v = want.clone()
+    v[:, [0, 95, n - 1]] = 0
+    assert torch.equal(fused.batch_inverse_chain(v, chain=m, group=g),
+                       fused.batch_inverse_chain_plain(v))
+
+
+@pytest.mark.parametrize("n", [524288, 557056])
+def test_inversion_on_tables_z_equals_plain(dev, n):
+    """Kernel G on the tables' Z counts at ``TABLE_INV_GEOMETRY`` (one
+    round a block) and at the product's geometry, with zero lanes:
+    bit-equal to its plain version (run on the card)."""
+    rng = np.random.default_rng(510)
+    v = _random_limbs(rng, n)
+    v[:, [0, 4097, n - 1]] = 0
+    v = v.to(dev)
+    want = fused.batch_inverse_chain_plain(v)
+    for geo in (fused.TABLE_INV_GEOMETRY, fused.INV_GEOMETRY):
+        assert torch.equal(fused.batch_inverse_chain(v, *geo), want)
+
+
+def _random_limbs(rng, n):
+    """(8, n) int32 limbs of random field elements below 2^256 - 2^224."""
+    limbs = rng.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    limbs[7] %= ec.P >> 224
+    return u256.as_i32(limbs.astype(np.uint32))
+
+
 # Kernels C and D over the persistent tile loop: D in both table forms for
 # every hash format, a table over the shared budget, C on windows that are
 # empty, partial and full, and the single-key probe's modes.

@@ -92,56 +92,50 @@ int h_ladder(int bits, int sgn, const uint32_t* bx, const uint32_t* by,
 }
 }  // extern "C"
 
-// inv_block.cuh's block, thread by thread between its barriers
+// inv_block.cuh's blocks, one after another: each block's rounds of
+// `round` chains (those inv_schedule gives a card of `sms` SMs) in turn,
+// each round's forward chains, then its trees (the tree warp's round, on
+// one lane), then its backward chains
 template <class Input>
 void inv_blocks(const Input& in, uint32_t* out, uint32_t* scratch, long N,
-                int M, int G, int block) {
-  const long T = N / M, S = 2L * block;
-  std::vector<uint32_t> tree(8 * S), v(8 * block);
-  for (long b0 = 0; b0 < T; b0 += block) {
-    for (int x = 0; x < block; x++) {
-      const int r = x & (G - 1);
-      uint32_t acc[8];
-      if (b0 + x < T) vg::inv_chain_forward(in, acc, scratch, N, T, M, b0 + x);
-      else vg::fe_set_one(acc);
-      vg::fe_store(tree.data(), S, 2L * (x - r) + G + r, acc);
-    }
-    for (int n = G >> 1; n >= 1; n >>= 1)
-      for (int x = 0; x < block; x++) {
-        const int r = x & (G - 1);
-        if (r < n) vg::tree_up(tree.data(), S, 2L * (x - r), n + r);
+                int M, int G, int round, int sms) {
+  const long T = N / M;
+  const vg::Scratch prefixes{scratch};
+  const vg::InvSchedule sched = vg::inv_schedule(T, round, sms);
+  std::vector<uint32_t> leaf(8 * round), inner(8 * round);
+  for (int b = 0; b < sched.blocks; b++)
+    for (long r = b; r < sched.rounds; r += sched.blocks) {
+      const long t0 = r * round;
+      if (G == 1) {
+        for (int x = 0; x < round && t0 + x < T; x++)
+          vg::inv_chain_thread(in, out, N, prefixes, M, t0 + x);
+        continue;
       }
-    for (int x = 0; x < block; x += G) {
-      uint32_t root[8];
-      vg::fe_load(root, tree.data(), S, 2L * x + 1);
-      vg::fe_inv(root, root);
-      vg::fe_store(tree.data(), S, 2L * x + 1, root);
-    }
-    for (int n = 2; n <= G; n <<= 1) {
-      for (int x = 0; x < block; x++) {
-        const int r = x & (G - 1);
-        if (r < n) vg::tree_down(&v[8 * x], tree.data(), S, 2L * (x - r), n + r);
+      for (int x = 0; x < round; x++) {
+        uint32_t acc[8];
+        if (t0 + x < T) vg::inv_chain_forward(in, acc, prefixes, M, t0 + x);
+        else vg::fe_set_one(acc);
+        vg::fe_store(leaf.data(), round, x, acc);
       }
-      for (int x = 0; x < block; x++) {
-        const int r = x & (G - 1);
-        if (r < n) vg::fe_store(tree.data(), S, 2L * (x - r) + n + r, &v[8 * x]);
+      vg::InvTree{leaf.data(), inner.data(), round, G}.round(round / G, 0, 1,
+                                                             [] {});
+      for (int x = 0; x < round && t0 + x < T; x++) {
+        uint32_t acc[8];
+        vg::fe_load(acc, leaf.data(), round, x);
+        vg::inv_chain_backward(in, acc, out, N, prefixes, M, t0 + x);
       }
     }
-    for (int x = 0; x < block && b0 + x < T; x++) {
-      const int r = x & (G - 1);
-      uint32_t acc[8];
-      vg::fe_load(acc, tree.data(), S, 2L * (x - r) + G + r);
-      vg::inv_chain_backward(in, acc, out, scratch, N, T, M, b0 + x);
-    }
-  }
 }
 extern "C" {
-// kernel G's block (v (8, N)) or, with bx non-null, kernel A's (dx of
-// bx (K, 8), tx = v (8, B), N = K * B)
+// kernel G's blocks (v (8, N)) or, with bx non-null, kernel A's (dx of
+// bx (K, 8), tx = v (8, B), N = K * B) in rounds of `round` chains on a
+// card of sms SMs
 void h_inv_block(const uint32_t* bx, const uint32_t* v, uint32_t* out,
-                 uint32_t* scratch, int N, int B, int M, int G, int block) {
-  if (bx) inv_blocks(vg::DxInput{bx, v, B}, out, scratch, N, M, G, block);
-  else inv_blocks(vg::GuardedInput{v, N}, out, scratch, N, M, G, block);
+                 uint32_t* scratch, int N, int B, int M, int G, int round,
+                 int sms) {
+  const long T = N / M;
+  if (bx) inv_blocks(vg::DxInput(bx, v, B, T), out, scratch, N, M, G, round, sms);
+  else inv_blocks(vg::GuardedInput{v, N, T}, out, scratch, N, M, G, round, sms);
 }
 }  // extern "C"
 """
@@ -161,7 +155,7 @@ def lib(tmp_path_factory):
             ("h_digits", [i, i, p, p, p, i], i),
             ("h_ladder_affine", [i, i] + [p] * 6 + [i], i),
             ("h_ladder", [i, i] + [p] * 9 + [i, i], i),
-            ("h_inv_block", [p] * 4 + [i] * 5, None)):
+            ("h_inv_block", [p] * 4 + [i] * 6, None)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, res
     return lib
@@ -307,30 +301,24 @@ def test_unknown_schedule_is_refused(lib, points):
     assert lib.h_ladder_affine(8, 1, *(_ptr(buf) for _ in range(6)), 1) == -1
 
 
-# (M, G, block, N): one inversion per thread; a warp; a block of 256 and of
-# 512; groups of 4; a chain of 1; and N = 512 at M = 64: 8 live threads of a
-# block of 256 in a group of 256, the other 248 joining with a total of 1
+# (M, G, round, N): one inversion per chain; a warp; rounds of 256 and of
+# 512; groups of 4; a chain of 1; and N = 512 at M = 64: 8 live chains of a
+# round of 256 in a group of 256, the other 248 joining with a total of 1.
+# On a card of one SM, so that a block walks up to 8 rounds.
 GEOMETRIES = [(64, 1, 256, 4096), (16, 32, 256, 4096), (16, 256, 256, 4096),
               (8, 512, 512, 4096), (4, 4, 256, 4096), (1, 256, 256, 4096),
               (64, 256, 256, 512)]
 
 
-@pytest.mark.parametrize("geometry", GEOMETRIES,
-                         ids=lambda g: "m{}g{}b{}n{}".format(*g))
-def test_block_tree_equals_plain_with_zero_lanes(lib, geometry):
-    """One block's product tree, emulated barrier by barrier: kernel G's
-    input with zeros at lanes 0, 17 and N - 1 (their inverses exactly 1)
-    and kernel A's dx with a zero-dx lane, bit-equal to the plain
-    versions at every geometry."""
-    M, G, block, N = geometry
-    rng = np.random.default_rng(84)
+def _block_equals_plain(lib, M, G, block, N, sms, seed=84):
+    rng = np.random.default_rng(seed)
     vals = _rand(rng, N, ec.P)
     for dead in (0, 17, N - 1):
         vals[dead] = 0
     v = u256.as_i32(u256.from_ints(vals))
     out, scratch = np.zeros((8, N), np.uint32), np.zeros((8, N), np.uint32)
     lib.h_inv_block(None, _ptr(_u32(v)), _ptr(out), _ptr(scratch), N, N, M, G,
-                    block)
+                    block, sms)
     np.testing.assert_array_equal(out, _u32(fused.batch_inverse_chain_plain(v)))
     got = _ints(out)
     assert [got[i] for i in (0, 17, N - 1)] == [1, 1, 1]
@@ -342,10 +330,41 @@ def test_block_tree_equals_plain_with_zero_lanes(lib, geometry):
     tx = u256.as_i32(u256.from_ints(tx_i))
     out[:] = 0
     lib.h_inv_block(_ptr(_u32(bx)), _ptr(_u32(tx)), _ptr(out), _ptr(scratch),
-                    N, B, M, G, block)
+                    N, B, M, G, block, sms)
     np.testing.assert_array_equal(out, _u32(fused.batch_inverse_dx_plain(bx,
                                                                          tx)))
     assert _ints(out)[B + 5] == 1
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES,
+                         ids=lambda g: "m{}g{}b{}n{}".format(*g))
+def test_block_tree_equals_plain_with_zero_lanes(lib, geometry):
+    """The blocks' rounds, emulated one after another (each round's
+    forward chains, its product trees on one lane, its backward chains):
+    kernel G's input with zeros at lanes 0, 17 and N - 1 (their inverses
+    exactly 1) and kernel A's dx with a zero-dx lane, bit-equal to the
+    plain versions at every geometry."""
+    _block_equals_plain(lib, *geometry, sms=1)
+
+
+# (M, G, round, N, sms): blocks of one round, of two, of three with the
+# last two blocks a round short (10 rounds on 4 slots), of eight, of two
+# rounds of 512 with the last block a round short, and of three with the
+# last round partly past the last chain (T = 1380); kernel A's B = N / 2 is
+# no power of two in the last three
+ROUND_SHAPES = [(1, 8, 256, 4096, 8), (1, 32, 256, 4096, 4),
+                (1, 256, 256, 2560, 2), (2, 16, 256, 8192, 1),
+                (1, 512, 512, 5632, 7), (2, 64, 256, 2760, 1)]
+
+
+@pytest.mark.parametrize("shape", ROUND_SHAPES,
+                         ids=lambda g: "m{}g{}b{}n{}sms{}".format(*g))
+def test_blocks_walking_rounds_equal_plain(lib, shape):
+    """Blocks that walk one, two and more rounds, and last blocks a round
+    short, through the schedule a card of so few SMs gives: bit-equal to
+    the plain versions."""
+    M, G, block, N, sms = shape
+    _block_equals_plain(lib, M, G, block, N, sms, seed=86)
 
 
 def test_tree_of_single_elements_inverts_each(lib):
@@ -356,5 +375,5 @@ def test_tree_of_single_elements_inverts_each(lib):
     v = u256.as_i32(u256.from_ints(vals))
     out, scratch = np.zeros((8, 8), np.uint32), np.zeros((8, 8), np.uint32)
     lib.h_inv_block(None, _ptr(_u32(v)), _ptr(out), _ptr(scratch), 8, 8, 1, 8,
-                    8)
+                    8, 1)
     assert _ints(out) == [pow(a, -1, ec.P) for a in vals]

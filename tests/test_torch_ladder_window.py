@@ -185,17 +185,18 @@ def test_scanner_uploads_the_product_table():
 
 
 def test_tool_counts_follow_the_work():
-    """The restated bounds: one inversion per thread is the earlier count
-    (three multiplies, the subtraction, an inversion per 64); a group of
-    256 shares the inversion and adds its tree's 3 (g - 1) multiplies.
+    """The restated bounds: one inversion per chain is the earlier count
+    (three multiplies, the subtraction, an inversion by divsteps per 64); a
+    group of 256 shares the inversion and adds its tree's 3 (g - 1)
+    multiplies.
     The ladder's count adds a lean add per nonzero digit and a negation
     per negative one; ``roofline.expected_adds`` is the mean of the
     digits' count on random tweaks."""
-    old = 3 * bm.FE_MUL + bm.FE_ADD + bm.INV / 64
+    old = 3 * bm.FE_MUL + bm.FE_ADD + bm.INV_DIVSTEPS / 64
     np.testing.assert_allclose(sweep_inv_chain.chain_count(64), old)
     new = sweep_inv_chain.chain_count(64, 256)
     np.testing.assert_allclose(
-        new, 3 * bm.FE_MUL + bm.FE_ADD + bm.INV / 16384
+        new, 3 * bm.FE_MUL + bm.FE_ADD + bm.INV_DIVSTEPS / 16384
         + 3 * bm.FE_MUL * 255 / 16384)
     assert new[0] < old[0]
     rng = np.random.default_rng(93)

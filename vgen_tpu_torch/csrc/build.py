@@ -189,6 +189,8 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 "vgen_probe_p2tr_match": [i, i, p, p, p, p, p, p, i, i, i, p,
                                           p, i, i, p],
                 "vgen_probe_dfa_blocks_per_sm": [i, i],
+                "vgen_probe_inv_stage": [i, p, p, p, p, p, i, i, i, i, p],
+                "vgen_probe_inv_lane": [p, p, i, p],
             },
         }
         for u in group:

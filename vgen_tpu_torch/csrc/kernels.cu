@@ -11,19 +11,23 @@
 //   zero dx guarded to 1.
 //   Bound: 32-bit integer multiply throughput.  About 3 field multiplies
 //   per element (forward product, backward product, backward accumulate)
-//   plus one 270-step addition-chain inversion amortised over the M * G
-//   elements of a group, and the product tree's 3 (G - 1) multiplies; the
-//   prefix scratch adds 64 bytes written and read per element.
+//   plus one inversion (divsteps) amortised over the M * G elements of a
+//   group, and the product tree's 3 (G - 1) multiplies; the prefix scratch
+//   adds 64 bytes written and read per element.
 //   Design: the TPU ran one long chain as a sequential grid carrying the
 //   running product in VMEM.  Here blocks run in no order, so every thread
-//   owns its own chain of M elements strided by the thread count (loads
-//   coalesce), and G threads of a block share one inversion through a
-//   product tree in shared memory (inv_block.cuh): one thread of a warp
-//   doing an inversion costs the whole warp's issue slots, so only a
-//   group wider than a warp cuts the inversions' cost.  The three passes
-//   are one launch.  The output is canonical, so the geometry (M, G)
-//   does not change the result; (64, 1) is a chain of 64 with one
-//   inversion per thread.
+//   owns its own chain of M elements strided by the chain count (loads
+//   coalesce; the chain steps its window and lane by additions), and G
+//   chains share one inversion through a product tree in shared memory
+//   (inv_block.cuh).  The blocks are persistent, one an SM, and walk
+//   rounds of 512 chains: while a block's tree warps build one round's
+//   trees and invert their products, its chain threads run the next
+//   rounds' forward chains, so no SM waits on a lane's inversion while
+//   another round has chains to run.  The inversion is by divsteps
+//   (field.cuh fe_inv), whose latency on one lane is about a sixth of
+//   the addition chain a^(p-2)'s.  The three passes are one launch.  The
+//   output is canonical, so the geometry (M, G) does not change the
+//   result; (64, 1) is a chain of 64 with one inversion per chain.
 //
 // Kernels B to E serve the five hash formats, each a template on the format
 // (match_kernels.cuh, per-lane bodies in scan_lanes.cuh), all instanced in
@@ -115,13 +119,12 @@
 //   m < R, from the K window bases k_j G and the host's cached (m + 1) D
 //   G, one affine add a lane (m, j) (scan_lanes.cuh base_advance_lane);
 //   the scanner copies one super-step's K bases from them at each step.
-//   Bound: latency: one lane's 270-step inversion chain and five field
-//   operations, the R K lanes side by side.
-//   Design: one thread a lane.  A lane's inversion chain takes about 0.1
-//   ms (NVIDIA H100 80GB HBM3), twice the 0.05 ms budget of a super-step
-//   of the product's; computing R super-steps ahead in one launch spreads
-//   it over R of them.  The host holds the scalars and keeps every lane
-//   off the doubling and the point at infinity.
+//   Bound: latency: one lane's inversion (divsteps, field.cuh fe_inv) and
+//   five field operations, the R K lanes side by side.
+//   Design: one thread a lane.  Computing R super-steps ahead in one
+//   launch spreads a launch's latency over R of them.  The host holds the
+//   scalars and keeps every lane off the doubling and the point at
+//   infinity.
 
 #include "inv_block.cuh"
 #include "match_kernels.cuh"
@@ -132,12 +135,11 @@
 
 namespace {
 
-template <int kBlock>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(vg::kInvThreads, 1)
     inv_dx_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ tx,
                   uint32_t* __restrict__ out, uint32_t* __restrict__ scratch,
-                  long B, long N, long T, int M, int G) {
-  vg::inv_block<kBlock>(vg::DxInput{bx, tx, B}, out, scratch, N, T, M, G);
+                  int B, long N, long T, int M, int G) {
+  vg::inv_block(vg::DxInput(bx, tx, B, T), out, scratch, N, T, M, G);
 }
 
 constexpr int kAdvanceThreads = 32;
@@ -156,7 +158,7 @@ __global__ void __launch_bounds__(kAdvanceThreads)
 extern "C" {
 
 // bx (K, 8), tx (8, B) -> out (8, K*B); scratch (8, K*B); M divides K*B;
-// groups of G threads share an inversion (inv_block.cuh).
+// groups of G chains share an inversion (inv_block.cuh).
 int vgen_batch_inverse_dx(const void* bx, const void* tx, void* out,
                           void* scratch, int K, int B, int M, int G,
                           void* stream) {
@@ -166,14 +168,8 @@ int vgen_batch_inverse_dx(const void* bx, const void* tx, void* out,
   const cudaStream_t s = (cudaStream_t)stream;
   const uint32_t *bx_ = (const uint32_t*)bx, *tx_ = (const uint32_t*)tx;
   uint32_t *out_ = (uint32_t*)out, *scratch_ = (uint32_t*)scratch;
-  if (G <= 256) {
-    inv_dx_kernel<256><<<(unsigned)((T + 255) / 256), 256, 0, s>>>(
-        bx_, tx_, out_, scratch_, (long)B, N, T, M, G);
-  } else {
-    inv_dx_kernel<512><<<(unsigned)((T + 511) / 512), 512, 0, s>>>(
-        bx_, tx_, out_, scratch_, (long)B, N, T, M, G);
-  }
-  return (int)cudaGetLastError();
+  return vg::inv_launch(inv_dx_kernel, T, s, bx_, tx_, out_, scratch_, B, N,
+                        T, M, G);
 }
 
 // Kernel J: bx, by (K, 8), qs (R, 2, 8) -> out (R, 2, K, 8), lane (m, j)

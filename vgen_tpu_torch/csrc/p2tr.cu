@@ -133,12 +133,11 @@ bool launch_ladder(int bits, int sgn, const uint32_t* bx, const uint32_t* by,
   return false;
 }
 
-template <int kBlock>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(vg::kInvThreads, 1)
     inv_chain_kernel(const uint32_t* __restrict__ v, uint32_t* __restrict__ out,
                      uint32_t* __restrict__ scratch, long N, long T, int M,
                      int G) {
-  vg::inv_block<kBlock>(vg::GuardedInput{v, N}, out, scratch, N, T, M, G);
+  vg::inv_block(vg::GuardedInput{v, N, T}, out, scratch, N, T, M, G);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -215,22 +214,16 @@ int vgen_p2tr_ladder_affine(const void* x, const void* y, const void* table,
 }
 
 // Kernel G.  v (8, N) -> out (8, N); scratch (8, N); M divides N; groups of
-// G threads share an inversion (inv_block.cuh).
+// G chains share an inversion (inv_block.cuh).
 int vgen_batch_inverse_chain(const void* v, void* out, void* scratch, int N,
                              int M, int G, void* stream) {
   if (!vg::inv_group_ok(G)) return (int)cudaErrorInvalidValue;
   const long T = (long)N / M;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (G <= 256) {
-    inv_chain_kernel<256><<<(unsigned)((T + 255) / 256), 256, 0, s>>>(
-        (const uint32_t*)v, (uint32_t*)out, (uint32_t*)scratch, (long)N, T, M,
-        G);
-  } else {
-    inv_chain_kernel<512><<<(unsigned)((T + 511) / 512), 512, 0, s>>>(
-        (const uint32_t*)v, (uint32_t*)out, (uint32_t*)scratch, (long)N, T, M,
-        G);
-  }
-  return (int)cudaGetLastError();
+  const uint32_t* v_ = (const uint32_t*)v;
+  uint32_t *out_ = (uint32_t*)out, *scratch_ = (uint32_t*)scratch;
+  return vg::inv_launch(inv_chain_kernel, T, s, v_, out_, scratch_, (long)N,
+                        T, M, G);
 }
 
 // Kernel H.  X, Z, zi (8, K*B); ok (K*B,); lo, hi (n_slots, 8) with

@@ -17,109 +17,248 @@ VG_CONSTANT uint32_t BETA[8] = {0x719501EEu, 0xC1396C28u, 0x12F58995u,
                                 0x9CF04975u, 0xAC3434E9u, 0x6E64479Eu,
                                 0x657C0710u, 0x7AE96A2Bu};
 
-// dx of element e = k*B + b: tx[b] - bx[k], with a zero (the doubling
-// lane, tx == bx) replaced by 1 so it cannot poison the chain.
-VG_FN void dx_of(uint32_t r[8], const uint32_t* bx, const uint32_t* tx,
-                 long B, long e) {
-  const long k = e / B, b = e - k * B;
-  uint32_t t[8], base[8];
-  fe_load(t, tx, B, b);
-#pragma unroll
-  for (int i = 0; i < 8; i++) base[i] = bx[k * 8 + i];
+// dx of a window's lane: table column t - the window's base x, with a
+// zero (the doubling lane, t == base) replaced by 1 so it cannot poison
+// the chain.
+VG_FN void dx_of(uint32_t r[8], const uint32_t base[8], const uint32_t t[8]) {
   fe_sub(r, t, base);
   if (fe_is_zero(r)) r[0] = 1u;
 }
 
-// The chain inputs of kernel A: dx of element e, recomputed from tx and bx
-// instead of stored.
+// The chain inputs of kernels A and G.  A chain visits the elements
+// e = t + j*T (strided by the chain count T, so each step's loads and
+// stores coalesce) through a position: at(e), next (e + T), prev (e - T),
+// and the value at a position.
+
+// Kernel A: dx of element e = k*B + b, recomputed from tx and bx instead
+// of stored.  T = q*B + r, so a step moves (k, b) by additions: one
+// division by B a chain end instead of one an element; the position keeps
+// bx[k] and reloads it when k moves.
 struct DxInput {
   const uint32_t* bx;
   const uint32_t* tx;
-  long B;
-  VG_FN void operator()(uint32_t r[8], long e) const { dx_of(r, bx, tx, B, e); }
+  int B, q, r;
+  long T;
+  struct Pos {
+    long e;
+    int k, b;
+    uint32_t base[8];  // bx[k]
+  };
+  VG_FN DxInput(const uint32_t* bx_, const uint32_t* tx_, int B_, long T_)
+      : bx(bx_), tx(tx_), B(B_), q((int)(T_ / B_)), r((int)(T_ % B_)), T(T_) {}
+  VG_FN void load_base(Pos& p) const {
+#pragma unroll
+    for (int i = 0; i < 8; i++) p.base[i] = bx[p.k * 8L + i];
+  }
+  VG_FN Pos at(long e) const {
+    Pos p{e, (int)(e / B), (int)(e % B), {}};
+    load_base(p);
+    return p;
+  }
+  VG_FN void next(Pos& p) const {
+    const int k = p.k;
+    p.e += T;
+    p.k += q;
+    p.b += r;
+    if (p.b >= B) {
+      p.b -= B;
+      p.k++;
+    }
+    if (p.k != k) load_base(p);
+  }
+  VG_FN void prev(Pos& p) const {
+    const int k = p.k;
+    p.e -= T;
+    p.k -= q;
+    p.b -= r;
+    if (p.b < 0) {
+      p.b += B;
+      p.k--;
+    }
+    if (p.k != k) load_base(p);
+  }
+  VG_FN void operator()(uint32_t v[8], const Pos& p) const {
+    uint32_t t[8];
+    fe_load(t, tx, B, p.b);
+    dx_of(v, p.base, t);
+  }
 };
 
-// The chain inputs of kernel G: element e of a materialized (8, N) array,
-// a zero replaced by 1 (so its "inverse" is exactly 1).
+// Kernel G: element e of a materialized (8, N) array, a zero replaced by 1
+// (so its "inverse" is exactly 1).
 struct GuardedInput {
   const uint32_t* v;
-  long N;
-  VG_FN void operator()(uint32_t r[8], long e) const {
-    fe_load(r, v, N, e);
+  long N, T;
+  struct Pos {
+    long e;
+  };
+  VG_FN Pos at(long e) const { return {e}; }
+  VG_FN void next(Pos& p) const { p.e += T; }
+  VG_FN void prev(Pos& p) const { p.e -= T; }
+  VG_FN void operator()(uint32_t r[8], const Pos& p) const {
+    fe_load(r, v, N, p.e);
     if (fe_is_zero(r)) r[0] = 1u;
   }
 };
 
-// Kernels A and G, thread t of T = N / M: a Montgomery chain over the M
-// elements e = t + j*T (strided by the thread count, so each step's loads
-// and stores coalesce).  Forward: exclusive prefix products into scratch,
-// acc = the chain's total.  The output is canonical, so the chain geometry
-// does not change the result.
-template <class Input>
+// The chains' prefix products, element-major: element e's 8 limbs at
+// 8e .. 8e + 7, so a thread moves them in two 16-byte accesses and a warp's
+// step is one 1 KB piece (the (8, N) arrays of the inputs and outputs take
+// eight 4-byte accesses a thread).
+struct Scratch {
+  uint32_t* s;
+  VG_FN void store(long e, const uint32_t a[8]) const {
+#ifdef __CUDACC__
+    uint4* p = reinterpret_cast<uint4*>(s + 8 * e);
+    p[0] = make_uint4(a[0], a[1], a[2], a[3]);
+    p[1] = make_uint4(a[4], a[5], a[6], a[7]);
+#else
+    for (int i = 0; i < 8; i++) s[8 * e + i] = a[i];
+#endif
+  }
+  VG_FN void load(uint32_t a[8], long e) const {
+#ifdef __CUDACC__
+    const uint4* p = reinterpret_cast<const uint4*>(s + 8 * e);
+    const uint4 lo = p[0], hi = p[1];
+    a[0] = lo.x, a[1] = lo.y, a[2] = lo.z, a[3] = lo.w;
+    a[4] = hi.x, a[5] = hi.y, a[6] = hi.z, a[7] = hi.w;
+#else
+    for (int i = 0; i < 8; i++) a[i] = s[8 * e + i];
+#endif
+  }
+};
+
+// Kernels A and G, chain t of T = N / M: a Montgomery chain over the M
+// elements t + j*T.  Forward: exclusive prefix products into scratch (a
+// Scratch), acc = the chain's total.  The output is canonical, so the
+// chain geometry does not change the result.
+template <class Input, class Prefixes>
 VG_FN void inv_chain_forward(const Input& in, uint32_t acc[8],
-                             uint32_t* scratch, long N, long T, int M, long t) {
+                             const Prefixes& scratch, int M, long t) {
   uint32_t v[8];
   fe_set_one(acc);
+  auto p = in.at(t);
   for (int j = 0; j < M; j++) {
-    const long e = t + j * T;
-    fe_store(scratch, N, e, acc);
-    in(v, e);
+    scratch.store(p.e, acc);
+    in(v, p);
     fe_mul(acc, acc, v);
+    if (j + 1 < M) in.next(p);
   }
 }
 
-// Backward, from acc = the inverse of the chain's total:
+// Backward, from acc = the inverse of the chain's total, into out (8, N):
 // inv[e] = acc * prefix[e], acc *= in(e).
-template <class Input>
+template <class Input, class Prefixes>
 VG_FN void inv_chain_backward(const Input& in, uint32_t acc[8], uint32_t* out,
-                              const uint32_t* scratch, long N, long T, int M,
-                              long t) {
-  uint32_t v[8], pre[8];
+                              long N, const Prefixes& scratch, int M, long t) {
+  uint32_t pre[8], v[8];
+  auto p = in.at(t + (M - 1) * in.T);
   for (int j = M - 1; j >= 0; j--) {
-    const long e = t + j * T;
-    fe_load(pre, scratch, N, e);
+    scratch.load(pre, p.e);
     fe_mul(pre, acc, pre);
-    fe_store(out, N, e, pre);
-    in(v, e);
+    fe_store(out, N, p.e, pre);
+    in(v, p);
     fe_mul(acc, acc, v);
+    if (j > 0) in.prev(p);
   }
 }
 
-// One thread's whole chain with its own inversion (a group of one).
-template <class Input>
-VG_FN void inv_chain_thread(const Input& in, uint32_t* out, uint32_t* scratch,
-                            long N, long T, int M, long t) {
+// One chain with its own inversion (a group of one).
+template <class Input, class Prefixes>
+VG_FN void inv_chain_thread(const Input& in, uint32_t* out, long N,
+                            const Prefixes& scratch, int M, long t) {
   uint32_t acc[8];
-  inv_chain_forward(in, acc, scratch, N, T, M, t);
+  inv_chain_forward(in, acc, scratch, M, t);
   fe_inv(acc, acc);
-  inv_chain_backward(in, acc, out, scratch, N, T, M, t);
+  inv_chain_backward(in, acc, out, N, scratch, M, t);
 }
 
-// The product tree that lets a group of G threads (G a power of two) share
-// one inversion.  Nodes live in a limb-major (8, stride) array, node i
-// (1 <= i < 2G) at column base + i: leaf r (G <= i = G + r < 2G) holds
-// thread r's chain total, node i < G the product of nodes 2i and 2i + 1,
-// so node 1 is the group's product.  Up-sweep: the G - 1 inner nodes,
-// deepest first.  Node 1 is then inverted in place, and the down-sweep
-// turns every node into its inverse, root first: inv(node i) =
-// inv(parent) * sibling.  Leaf r then holds the inverse of thread r's
-// total.  Input zeros are guarded to 1, so no node is zero.
-VG_FN void tree_up(uint32_t* tree, long stride, long base, long i) {
-  uint32_t l[8], r[8];
-  fe_load(l, tree, stride, base + 2 * i);
-  fe_load(r, tree, stride, base + 2 * i + 1);
-  fe_mul(l, l, r);
-  fe_store(tree, stride, base + i, l);
-}
+// The product tree that lets a group of G chains (G a power of two, at
+// least 2) share one inversion, over a round of Q groups.  Node i (1 <= i
+// < 2G) of group q: leaf r = i - G (chain q G + r's total) at column
+// q G + r of leaf, inner node i < G, the product of nodes 2i and 2i + 1,
+// at column q G + i of inner; both limb-major (8, stride).  Node 1 is the
+// group's product.  Up-sweep: the inner nodes, deepest first.  Each root
+// is then inverted in place, and the down-sweep turns every node into its
+// inverse, root first: inv(child) = inv(parent) * sibling.  Leaf r then
+// holds the inverse of chain r's total.  Input zeros are guarded to 1, so
+// no node is zero.
+struct InvTree {
+  uint32_t* leaf;
+  uint32_t* inner;
+  long stride;
+  int G;
+  VG_FN long col(int q, int i) const {
+    return (long)q * G + (i >= G ? i - G : i);
+  }
+  VG_FN void load(uint32_t r[8], int q, int i) const {
+    fe_load(r, i >= G ? leaf : inner, stride, col(q, i));
+  }
+  VG_FN void store(int q, int i, const uint32_t a[8]) const {
+    fe_store(i >= G ? leaf : inner, stride, col(q, i), a);
+  }
+  // step x < Q n of the level of nodes n .. 2n - 1 (n < G): node n + x % n
+  // of group x / n
+  VG_FN void up(int n, int x) const {
+    const int q = x / n, i = n + x % n;
+    uint32_t a[8], b[8];
+    load(a, q, 2 * i);
+    load(b, q, 2 * i + 1);
+    fe_mul(a, a, b);
+    store(q, i, a);
+  }
+  VG_FN void invert_root(int q) const {
+    uint32_t a[8];
+    load(a, q, 1);
+    fe_inv(a, a);
+    store(q, 1, a);
+  }
+  // step x < Q n below the level of nodes n .. 2n - 1, whose inverses are
+  // in place: both children of node n + x % n of group x / n become theirs
+  VG_FN void down(int n, int x) const {
+    const int q = x / n, i = n + x % n;
+    uint32_t p[8], a[8], b[8];
+    load(p, q, i);
+    load(a, q, 2 * i);
+    load(b, q, 2 * i + 1);
+    fe_mul(b, p, b);  // inv(a) = inv(parent) * b
+    fe_mul(a, p, a);
+    store(q, 2 * i, b);
+    store(q, 2 * i + 1, a);
+  }
+  // The whole round by `lanes` lanes, lane `lane` taking every lanes-th
+  // step of a level; sync() between levels (a warp's __syncwarp, or
+  // nothing for one lane).
+  template <class Sync>
+  VG_FN void round(int Q, int lane, int lanes, Sync sync) const {
+    for (int n = G >> 1; n >= 1; n >>= 1) {
+      for (int x = lane; x < Q * n; x += lanes) up(n, x);
+      sync();
+    }
+    for (int q = lane; q < Q; q += lanes) invert_root(q);
+    sync();
+    for (int n = 1; n < G; n <<= 1) {
+      for (int x = lane; x < Q * n; x += lanes) down(n, x);
+      sync();
+    }
+  }
+};
 
-// v = the inverse of node i >= 2, from its parent's inverse (already in
-// the tree) and its sibling's product (not yet replaced).
-VG_FN void tree_down(uint32_t v[8], const uint32_t* tree, long stride,
-                     long base, long i) {
-  uint32_t s[8];
-  fe_load(v, tree, stride, base + (i >> 1));
-  fe_load(s, tree, stride, base + (i ^ 1));
-  fe_mul(v, v, s);
+// Kernels A and G's persistent schedule (inv_block.cuh), also computed on
+// the host: T chains in rounds of `round` chains; an SM holds kInvSmChains
+// chains of rounds at once (one block of 512), so `sms` of them hold
+// sms * kInvSmChains / round blocks.  Each block walks `per` rounds (the
+// last blocks one fewer), so that all blocks run in one wave.
+constexpr int kInvSmChains = 512;
+struct InvSchedule {
+  long rounds;
+  int blocks, per;
+};
+VG_HD inline InvSchedule inv_schedule(long T, int round, int sms) {
+  const long rounds = (T + round - 1) / round;
+  const long slots = (long)sms * (kInvSmChains / round);
+  const long per = (rounds + slots - 1) / slots;
+  return {rounds, (int)((rounds + per - 1) / per), (int)per};
 }
 
 // Lexicographic lo[s] <= w <= hi[s] for any slot s of W words (word 0

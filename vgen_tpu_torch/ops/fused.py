@@ -61,6 +61,8 @@ Counterparts in ``vgen_tpu/ops/pallas_fused.py``: ``batch_inverse_dx_pallas``,
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from vgen_tpu_torch.crypto.address import AddressFormat
@@ -84,13 +86,18 @@ GLV_KEYS = 6  # keys checked per table position: {+-k, +-lk, +-l^2 k}
 # elements per thread chain of the plain batch inversions (the largest
 # power of two <= this that divides the lane count)
 INV_CHAIN = 64
-# kernels A and G: (M, G), each thread a chain of M elements (the largest
-# power of two <= M that divides the lane count), G threads of a block
-# sharing one inversion (csrc/inv_block.cuh); (64, 1) is one inversion per
-# thread.  Chosen on the card by ``python -m
-# vgen_tpu_torch.probes.sweep_inv_chain``.
-INV_GEOMETRY = (64, 256)
+# kernels A and G: (M, G), chains of M elements (the largest power of two
+# <= M that divides the lane count), G chains sharing one inversion
+# (csrc/inv_block.cuh); (64, 1) is one inversion per chain.  Chosen on the
+# card by ``python -m vgen_tpu_torch.probes.sweep_inv_chain``: at K = 8, B =
+# 524288, (32, 32), two rounds a block, read 0.3479 ms (A) and 0.3458 (G);
+# (64, 32), one, 0.3626 and 0.3516; (16, 32), four, 0.3941 and 0.3932
+# (NVIDIA H100 80GB HBM3, 700 W).
+INV_GEOMETRY = (32, 32)
 INV_GROUPS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+# kernels A and G's block: 512 chain threads, one block an SM (csrc/
+# scan_lanes.cuh kInvSmChains, inv_block.cuh kInvBlock)
+INV_BLOCK = 512
 
 # kernel F's window schedules (bits, signed digits) that csrc/p2tr.cu
 # instances (VG_LADDER_WINDOWS), and the product's, chosen on the card by
@@ -168,6 +175,36 @@ def _inv_geometry(n: int, chain: int, group: int):
         raise ValueError(f"inversion group {group}: expected one of "
                          f"{INV_GROUPS}")
     return _chain_len(n, chain), group
+
+
+class InvSchedule(NamedTuple):
+    """Kernels A and G's launch over n elements (``csrc/scan_lanes.cuh``
+    ``inv_schedule``): ``blocks`` persistent blocks, one an SM, each
+    walking at most ``rounds`` rounds of ``INV_BLOCK`` chains, so at most
+    ``groups`` groups sharing an inversion (the last blocks a round
+    fewer)."""
+    blocks: int
+    rounds: int
+    groups: int
+
+    @property
+    def overlapped(self) -> bool:
+        """A block's tree warps invert one round's groups while its chains
+        run the next rounds': at least two rounds, and groups of two or
+        more (a group of one inverts its own chain, with no tree warp)."""
+        return self.rounds >= 2 and self.groups < self.rounds * INV_BLOCK
+
+
+def inv_schedule(n: int, chain: int = INV_GEOMETRY[0],
+                 group: int = INV_GEOMETRY[1], *, sms: int) -> InvSchedule:
+    """The schedule kernels A and G launch over n elements at (chain,
+    group) on a card of ``sms`` SMs: T = n / M chains in rounds of
+    ``INV_BLOCK``, one block an SM, each walking the same number of rounds
+    but the last."""
+    m, g = _inv_geometry(n, chain, group)
+    rounds = -(-(n // m) // INV_BLOCK)
+    per = -(-rounds // sms)
+    return InvSchedule(-(-rounds // per), per, per * (INV_BLOCK // g))
 
 
 def batch_inverse_dx(bx: torch.Tensor, tx: torch.Tensor,
@@ -892,14 +929,15 @@ batch_inverse_chain.launches = 0
 # The table kernels: T1 (log-doubling steps) and T2 (the affine pass)
 # ---------------------------------------------------------------------------
 
-# kernel G's (M, G) on a table's Z, (8, R count): the product's (64, 256)
-# gives 8192 threads at the i*G table's 524288 points, 32 blocks on 132
+# kernel G's (M, G) on a table's Z, (8, R count): the product's (32, 32)
+# gives 16384 chains at the i*G table's 524288 points, 32 blocks on 132
 # SMs.  Chosen on the card by ``python -m vgen_tpu_torch.probes.sweep_inv_chain
-# --n 524288 557056`` (the i*G table, the 16-bit ladder table): (16, 256)
-# read 0.190 and 0.203 ms, (64, 256) 0.309 and 0.312; (8, 256), 0.176 at
-# 524288, took 0.352 at 557056, whose 272 blocks of 96-register threads
-# overflow one wave of two blocks per SM (NVIDIA H100 80GB HBM3, 700 W).
-TABLE_INV_GEOMETRY = (16, 256)
+# --n 524288 557056`` (the i*G table, the 16-bit ladder table): (16, 32),
+# one round a block on 64 and 68 SMs, read 0.1179 and 0.1160 ms, (16, 256)
+# 0.1214 and 0.1195, (32, 32) 0.1831 and 0.1822; (8, 32), 0.0862 at
+# 524288, took 0.1178 at 557056, two rounds on 68 SMs (NVIDIA H100 80GB
+# HBM3, 700 W).
+TABLE_INV_GEOMETRY = (16, 32)
 # T1's threads a block, passed to its launcher: the steps of at most this
 # many columns a row run in one launch of one block per row
 TABLE_GROW_BLOCK = 256

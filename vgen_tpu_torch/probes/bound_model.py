@@ -55,7 +55,11 @@ The counts, per lane:
   first round's parities skip the zero lanes of the absorbed block, whose
   theta results a column shares; the last round computes only the
   output's halves and the five lanes that chi reads for them;
-- inversion: 255 squarings and 15 multiplies;
+- inversion: 255 squarings and 15 multiplies; by divsteps (kernels A
+  and G's groups): 20 rounds of 30 steps of 20 ALU instructions (the
+  masks, three conditional adds, the swap and the shifts), and a round's
+  matrix applied to (f, g) and (d, e) in 72 multiply-adds (a lower count:
+  9 limbs of 4 and 4, and p's three nonzero limbs);
 - a DFA step: the index's multiply-add and the load, from the read-only
   cache or from shared memory;
 - kernel D's Base58Check walk (``B58_WALK``): the checksum, the 49
@@ -177,6 +181,7 @@ SHA256 = sha256_msg(33)
 RIPEMD160 = ops(0, 160 * 3, 160 * 6 - 80 + 10 + 8)
 HASH160 = SHA256 + RIPEMD160
 INV = 255 * FE_SQR + 15 * FE_MUL
+INV_DIVSTEPS = 20 * (30 * ops(0, 20, 20) + ops(72, 0, 2 * 72))
 # hash160 of 04 || x || y: a 64-byte block, then one of y's last byte and
 # padding from the first block's state; the P2SH-P2WPKH redeem script
 # 00 14 || hash160 (22 bytes) through SHA-256 and RIPEMD-160

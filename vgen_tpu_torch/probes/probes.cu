@@ -48,6 +48,7 @@
 #include <type_traits>
 
 #include "geometry_lanes.cuh"
+#include "inv_stages.cuh"
 #include "match_kernels.cuh"
 #include "p2tr_match_lanes.cuh"
 #include "single_key_lanes.cuh"
@@ -660,6 +661,26 @@ int dfa_blocks_per_sm(int shared, int table_bytes) {
   return e != cudaSuccess ? -(int)e : blocks;
 }
 
+// Kernel A by stage at (M, G), T = K B / M chains (inv_stages.cuh): stage
+// 0, 1, 2 the forward chains, trees, backward chains.  bx (K, 8), tx (8,
+// B); leaf (8, T); out, scratch (8, K B).
+int launch_inv_stage(int stage, const void* bx, const void* tx, void* leaf,
+                     void* out, void* scratch, int K, int B, int M, int G,
+                     void* stream) {
+  const long N = (long)K * B, T = N / M;
+  if (!inv_group_ok(G) || G > 256) return (int)cudaErrorInvalidValue;
+  const bool tree = stage == kStageTree;
+  const unsigned blocks =
+      (unsigned)(tree ? (T + kInvBlock - 1) / kInvBlock : (T + 255) / 256);
+  return dispatch<0, 3>(stage, [&](auto m) {
+    inv_stage_kernel<decltype(m)::value>
+        <<<blocks, tree ? 32 : 256, 0, (cudaStream_t)stream>>>(
+            (const uint32_t*)bx, (const uint32_t*)tx, (uint32_t*)leaf,
+            (uint32_t*)out, (uint32_t*)scratch, B, N, T, M, G);
+    return (int)cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 // C entry points.  probe_primitive, probe_issue, probe_fieldmul: a, b, out
@@ -741,6 +762,20 @@ int vgen_probe_p2tr_match(int mode, int shared, const void* X, const void* Z,
 
 int vgen_probe_dfa_blocks_per_sm(int shared, int table_bytes) {
   return dfa_blocks_per_sm(shared, table_bytes);
+}
+
+int vgen_probe_inv_stage(int stage, const void* bx, const void* tx,
+                         void* leaf, void* out, void* scratch, int K, int B,
+                         int M, int G, void* stream) {
+  return launch_inv_stage(stage, bx, tx, leaf, out, scratch, K, B, M, G,
+                          stream);
+}
+
+// One thread inverts a (8, 1) reps times in a row -> out (8, 1).
+int vgen_probe_inv_lane(const void* a, void* out, int reps, void* stream) {
+  inv_lane_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const uint32_t*)a,
+                                                     (uint32_t*)out, reps);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -58,9 +58,9 @@ R0, MAX_REPS = 8, 1 << 14
 # Kernels A to I as primitives per lane (the scan's K = 8 windows of B =
 # 524288), for the composition; the finish counts field multiplies and
 # squarings only (the product squares with the dedicated squaring; the
-# ``fe_sqr`` probe times the full multiply fe_mul(a, a)), the inversion and
-# the product tree are spread over kernels A's and G's groups
-# (``fused.INV_GEOMETRY``), P2TR's ladder adds its schedule's expected
+# ``fe_sqr`` probe times the full multiply fe_mul(a, a)), the product tree
+# is spread over kernels A's and G's groups (``fused.INV_GEOMETRY``),
+# P2TR's ladder adds its schedule's expected
 # nonzero digits (``fused.LADDER_WINDOW``), and the negations of signed
 # digits and bech32m, which no primitive times, count as nothing.
 SQR = "fe_sqr_dedicated"
@@ -77,8 +77,9 @@ def expected_adds(bits: int, signed: bool) -> float:
 
 
 def _chain(m: int, g: int):
-    shared = m * g
-    return {"fe_mul": 3 + (15 + 3 * (g - 1)) / shared, SQR: 255 / shared}
+    # the group's inversion (divsteps, no primitive of its own) is left out:
+    # shared by m g elements, under 1% of a chain's multiplies
+    return {"fe_mul": 3 + 3 * (g - 1) / (m * g)}
 
 
 _GLV_FINISH = {"fe_mul": 3, SQR: 1}  # x-only finish, beta x, beta^2 x
