@@ -291,7 +291,7 @@ def test_partial_windows_feed_the_remaining_keys(scanner):
     """A super-step with partial windows copies its remaining keys into the
     static input; the next full one restores the shared full ones."""
     scanner._plan(Pattern("^1C"), ScanConfig(start=1), glv=False)
-    route = sc._Route(lambda bx, by, rem: rem.clone(), None, True)
+    route = sc._Route(lambda bx, by, rem: rem.clone(), None, "intervals")
     rows = [scanner._submit(route, _windows(10 ** 7 + i * K * B), rems)[0]
             for i, rems in enumerate((None, [B, B, 9, 0], None,
                                       [B] * K))]

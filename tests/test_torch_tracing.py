@@ -105,6 +105,10 @@ def test_spans_under_a_profiler(tmp_path):
     assert counters["checkpoint_writes"] >= 1
     assert counters["checkpoint_bytes"] > 0
     assert counters["launches"] == 0  # plain versions launch no kernel
+    # the keys the super-steps counted, under the format and route that
+    # checked them; key 1 is checked on the host
+    assert {n: c for n, c in counters.items() if n.startswith("keys.")} == {
+        "keys.p2pkh.intervals": res.operations - 1}
     for name, s in spans.items():
         assert 0 <= s["self_s"] <= s["total_s"], name
     # the drain's children nest in it

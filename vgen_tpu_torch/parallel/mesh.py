@@ -53,7 +53,7 @@ from vgen_tpu_torch.scan.scanner import (
 
 class _MeshRoute(dict):
     """{device: its ``DeviceScanner``'s route of a pattern}, and their
-    ``exact``."""
+    ``kind`` and ``exact``."""
 
 
 def _on(dev: torch.device):
@@ -148,7 +148,8 @@ class MeshScanner(SuperStepScan):
         for dev, scanner in self._scanners.items():
             with _on(dev):
                 routes[dev] = scanner._plan(pattern, config, glv)
-        routes.exact = routes[self.devices[0]].exact
+        first = routes[self.devices[0]]
+        routes.kind, routes.exact = first.kind, first.exact
         return routes
 
     def _submit(self, routes, base_scalars: List[int],

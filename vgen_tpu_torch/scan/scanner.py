@@ -80,12 +80,12 @@ class SuperStepScan:
     One super-step covers ``self.windows`` consecutive windows of
     ``self.batch`` keys; window j covers keys base+1 .. base+B with base =
     next_key - 1 + j*B.  A subclass places the windows on its devices:
-    ``_plan`` (the pattern's route, whose ``exact`` says whether a device
-    hit is a match of the full pattern), ``_submit`` (launch one
-    super-step and start its (windows, 34) packed rows' copy to the host:
-    ``_copy_to_host``),
-    ``_window_indices`` (every match of one window, for overflow
-    recovery), ``_random_start``, ``_checkpoint`` and ``_synchronize``.
+    ``_plan`` (the pattern's route, whose ``kind`` names it and whose
+    ``exact`` says whether a device hit is a match of the full pattern),
+    ``_submit`` (launch one super-step and start its (windows, 34) packed
+    rows' copy to the host: ``_copy_to_host``), ``_window_indices`` (every
+    match of one window, for overflow recovery), ``_random_start``,
+    ``_checkpoint`` and ``_synchronize``.
     """
 
     fmt: AddressFormat
@@ -107,6 +107,9 @@ class SuperStepScan:
         with tracing.stage("start.route"):
             route = self._plan(pattern, config, glv)
         B, W = self.batch, self.windows
+        # the keys each super-step counted, by format and by the route
+        # (the kernel instance) that checked them
+        keys_counter = f"keys.{self.fmt.value}.{route.kind}"
 
         gen = AddressGenerator(self.fmt)
         matches: List[GeneratedAddress] = []
@@ -191,6 +194,7 @@ class SuperStepScan:
             # device-confirmed indices so far in this super-step: each
             # derives to at least one real match when the route is exact
             guaranteed = 0
+            ops0 = total_ops
             for k, base_scalar in enumerate(base_scalars):
                 count = int(arr[k, 0])
                 total_ops += int(arr[k, 1])
@@ -232,6 +236,7 @@ class SuperStepScan:
                             if glv else [key0])
                     if route.exact:
                         guaranteed += sum(1 for b in pairs.values() if b)
+            tracing.count(keys_counter, total_ops - ops0)
             n_matches = len(matches)
             with tracing.span("vgen.drain.derive"):
                 for key, ga in _derive_checked_bulk(cand_keys, self.fmt, gen):
@@ -289,16 +294,19 @@ def _affine_limbs(points):
 
 class _Route:
     """A pattern's route on one scanner's device: its packed ``step`` and
-    ``mask_step`` (overflow recovery), each taking (bx, by, remaining), and
-    ``exact``: a device hit is a match of the full pattern (False for
-    prefilter intervals).  ``rows`` runs the step eagerly once over the
-    scanner's static inputs (the same tensors at every call), then on a
-    card captures it as a CUDA graph that later calls replay into one
-    output; on the CPU each call runs it again.  The capture runs nothing,
-    so each replay adds to ``fused``'s launch counters what it counted."""
+    ``mask_step`` (overflow recovery), each taking (bx, by, remaining); its
+    ``kind``: "intervals" (exact), "prefilter" (intervals whose hits the
+    host checks against the full pattern) or "dfa"; and ``exact``: a device
+    hit is a match of the full pattern (False for the prefilter).
+    ``rows`` runs the step eagerly once over the scanner's static inputs
+    (the same tensors at every call), then on a card captures it as a CUDA
+    graph that later calls replay into one output; on the CPU each call
+    runs it again.  The capture runs nothing, so each replay adds to
+    ``fused``'s launch counters what it counted."""
 
-    def __init__(self, step, mask_step, exact: bool):
-        self.step, self.mask_step, self.exact = step, mask_step, exact
+    def __init__(self, step, mask_step, kind: str):
+        self.step, self.mask_step, self.kind = step, mask_step, kind
+        self.exact = kind != "prefilter"
         self.graph = None
         self._first = True
 
@@ -520,7 +528,7 @@ class DeviceScanner(SuperStepScan):
             return fused.fused_range_mask_step(
                 self.fmt, bx, by, self.tx, self.ty, lo, hi, rem, glv, self.wt)
 
-        return _Route(step, mask_step, exact)
+        return _Route(step, mask_step, "intervals" if exact else "prefilter")
 
     def _dfa_route(self, table_np, accept_np, start: int, glv: bool):
         dev = self.device
@@ -538,7 +546,7 @@ class DeviceScanner(SuperStepScan):
                 self.fmt, bx, by, self.tx, self.ty, table, accept, start, rem,
                 glv, self.wt, narrow)
 
-        return _Route(step, mask_step, True)
+        return _Route(step, mask_step, "dfa")
 
     def _rows(self, route: _Route, base_scalars: List[int],
               rems: Optional[List[int]]) -> torch.Tensor:
