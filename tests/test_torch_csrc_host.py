@@ -19,12 +19,17 @@ from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
 from vgen_tpu_torch.crypto import secp256k1 as ec
 from vgen_tpu_torch.crypto.address import AddressFormat
 from vgen_tpu_torch.csrc import build
-from vgen_tpu_torch.ops import encode, fused, pipeline, u256
+from vgen_tpu_torch.ops import encode, field, fused, pipeline, u256
 from vgen_tpu_torch.pattern import Pattern
 from vgen_tpu_torch.scan import tables
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no host C++ compiler (g++)")
+
+# csrc/field.cuh's carry-chain instructions; those named mad* take a third
+# operand
+CARRY_OPS = ("add_cc", "addc_cc", "addc", "sub_cc", "subc_cc", "subc",
+             "mad_lo_cc", "madc_lo_cc", "mad_hi_cc", "madc_hi_cc", "madc_hi")
 
 HARNESS = r"""
 #include "p2tr_lanes.cuh"
@@ -95,6 +100,33 @@ void h_field(int op, const uint32_t* a, const uint32_t* b, uint32_t* r, int n) {
     else if (op == 1) vg::fe_neg(z, x);
     else vg::fe_mul_small(z, x, (uint32_t)op);
     vg::fe_store(r, n, e, z);
+  }
+}
+// per element e < n of (8, n) limb-major arrays, the carry-chain
+// arithmetic: op 0 fe_mul, 1 fe_sqr, 2 fe_reduce512 (a the low half, b
+// the high), 3 fe_add, 4 fe_sub, 5 fe_neg, 6 fe_mul_small by k, 7
+// fe_mul_wide; r is (16, n), its rows 8 to 15 the product's high half
+void h_field_chain(int op, uint32_t k, const uint32_t* a, const uint32_t* b,
+                   uint32_t* r, int n) {
+  for (long e = 0; e < n; e++) {
+    uint32_t x[8], y[8], t[16];
+    vg::fe_load(x, a, n, e);
+    vg::fe_load(y, b, n, e);
+    for (int i = 0; i < 16; i++) t[i] = 0u;
+    if (op == 0) vg::fe_mul(t, x, y);
+    if (op == 1) vg::fe_sqr(t, x);
+    if (op == 2) {
+      vg::fe_copy(t, x);
+      vg::fe_copy(t + 8, y);
+      vg::fe_reduce512(t, t);
+      for (int i = 8; i < 16; i++) t[i] = 0u;
+    }
+    if (op == 3) vg::fe_add(t, x, y);
+    if (op == 4) vg::fe_sub(t, x, y);
+    if (op == 5) vg::fe_neg(t, x);
+    if (op == 6) vg::fe_mul_small(t, x, k);
+    if (op == 7) vg::fe_mul_wide(t, x, y);
+    for (int i = 0; i < 16; i++) r[i * n + e] = t[i];
   }
 }
 void h_lean_add(uint32_t* X, uint32_t* Y, uint32_t* Z, const uint32_t* x2,
@@ -264,6 +296,25 @@ void h_dfa(int fmt, int glv, const uint32_t* bx, const uint32_t* by,
                 start, rem, out, K, B)
 }
 }
+""" + r"""
+extern "C" {
+// one carry-chain instruction (op: CARRY_OPS' order) per element e < n,
+// the carry flag set to cf[e] before it and read into cf[e] after it
+void h_carry_op(int op, const uint32_t* a, const uint32_t* b,
+                const uint32_t* c, uint32_t* d, uint32_t* cf, int n) {
+  for (long e = 0; e < n; e++) {
+    vg::add_cc(cf[e], ~0u);
+    const uint32_t x = a[e], y = b[e], z = c[e];
+    uint32_t r = 0u;
+    switch (op) {
+""" + "".join(
+    f"      case {k}: r = vg::{op}(x, y{', z' if op.startswith('mad') else ''}); "
+    "break;\n" for k, op in enumerate(CARRY_OPS)) + r"""    }
+    d[e] = r;
+    cf[e] = vg::addc(0u, 0u);
+  }
+}
+}
 """
 
 K, B = 2, 256
@@ -293,6 +344,8 @@ def lib(tmp_path_factory):
     lib.h_table_grow.argtypes = [p] * 4 + [i, i, i]
     lib.h_table_grow.restype = i
     for name, args in (("h_field", [i, p, p, p, i]),
+                       ("h_field_chain", [i, ctypes.c_uint32, p, p, p, i]),
+                       ("h_carry_op", [i, p, p, p, p, p, i]),
                        ("h_full_add", [p] * 6 + [i]), ("h_double", [p] * 3 + [i]),
                        ("h_table_affine", [p] * 5 + [i, i, i]),
                        ("h_lean_add", [p] * 6 + [i]),
@@ -486,8 +539,6 @@ def _out_like(t: torch.Tensor) -> np.ndarray:
 
 @pytest.mark.parametrize("op", ["add", "neg", "mul_small2", "mul_small977"])
 def test_field_add_neg_mul_small_equal_plain(lib, op):
-    from vgen_tpu_torch.ops import field
-
     rng = np.random.default_rng(31)
     edge = (0, 1, ec.P - 1, ec.P - 2, (1 << 255), ec.P - (1 << 32))
     a = _rand_fe(rng, 128, edge)
@@ -502,6 +553,109 @@ def test_field_add_neg_mul_small_equal_plain(lib, op):
     out = _out_like(a)
     lib.h_field(code, _ptr(_u32(a)), _ptr(_u32(b)), _ptr(out), 128)
     np.testing.assert_array_equal(out.astype(np.int64), want().numpy())
+
+
+# field values where the carry chains run longest: limbs of all ones below
+# p, values next to p and to 2^32 + 977; their pairs give products whose
+# every row carries through all its limbs
+FIELD_EDGES = (0, 1, 2, ec.P - 1, ec.P - 2, ec.P - 977, (1 << 32) + 976,
+               (1 << 32) + 977, 1 << 255, ec.P - (1 << 32), (1 << 32) - 1,
+               (1 << 64) - 1, (1 << 192) - 1, (1 << 224) - 1,
+               (1 << 256) - (1 << 33) - 1, ec.P - (1 << 224))
+# halves of a 512-bit value for fe_reduce512, any 256 bits: 2^512 - 1 and
+# halves at and above p among them
+HALF_EDGES = (0, 1, (1 << 256) - 1, ec.P, ec.P - 1, ec.P + 1,
+              (1 << 256) - (1 << 32) - 1, (1 << 32) + 976, 1 << 255,
+              (1 << 224) - 1)
+CHAIN_FIELD_OPS = {
+    "mul": (0, 0, lambda a, b: field.mul(a, b)),
+    "sqr": (1, 0, lambda a, b: field.square(a)),
+    "reduce512": (2, 0, lambda a, b: field.reduce512(torch.cat([a, b]))),
+    "add": (3, 0, lambda a, b: field.add(a, b)),
+    "sub": (4, 0, lambda a, b: field.sub(a, b)),
+    "neg": (5, 0, lambda a, b: field.neg(a)),
+    "mul_small3": (6, 3, lambda a, b: field.mul_small(a, 3)),
+    "mul_small977": (6, 977, lambda a, b: field.mul_small(a, 977)),
+    "mul_small65535": (6, 65535, lambda a, b: field.mul_small(a, 65535)),
+    "mul_wide": (7, 0, lambda a, b: field.mul_wide(a, b)),
+}
+
+
+@pytest.mark.parametrize("op", list(CHAIN_FIELD_OPS))
+def test_field_carry_chains_equal_plain(lib, op):
+    """The carry-chain arithmetic of ``csrc/field.cuh`` (its chains run on
+    the host with the flag in a variable) against the plain versions: every
+    pair of edge values, then 256 random pairs."""
+    code, k, plain = CHAIN_FIELD_OPS[op]
+    rng = np.random.default_rng(33)
+    edges, bound = (HALF_EDGES, 1 << 256) if op == "reduce512" else (
+        FIELD_EDGES, ec.P)
+    pairs = [(x, y) for x in edges for y in edges]
+    pairs += [(int.from_bytes(rng.bytes(32), "big") % bound,
+               int.from_bytes(rng.bytes(32), "big") % bound)
+              for _ in range(256)]
+    a = u256.from_ints([x for x, _ in pairs])
+    b = u256.from_ints([y for _, y in pairs])
+    n = len(pairs)
+    out = np.zeros((16, n), np.uint32)
+    lib.h_field_chain(code, k, _ptr(a), _ptr(b), _ptr(out), n)
+    want = plain(torch.from_numpy(a.astype(np.int64)),
+                 torch.from_numpy(b.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(out[:len(want)].astype(np.int64), want)
+    if op == "reduce512":  # the pair (2^256 - 1, 2^256 - 1) is 2^512 - 1
+        assert u256.to_ints(out[:8])[len(edges) * 2 + 2] == (
+            ((1 << 512) - 1) % ec.P)
+
+
+
+
+def _ptx(op, a, b, c, cf):
+    """PTX's result and carry flag after ``op`` (uint64 arrays of 32-bit
+    values; the flag is a borrow for the subtracts): a ".cc" form writes
+    the flag, a "c" form reads it, and the other forms leave it."""
+    prod = a * b
+    lo, hi = prod & 0xFFFFFFFF, prod >> 32
+    carry_in = cf.astype(np.int64) if op.startswith(("addc", "subc",
+                                                      "madc")) else 0
+    if op.startswith(("add", "sub")):
+        x, y = a.astype(np.int64), b.astype(np.int64)
+        s = x + y + carry_in if op.startswith("add") else x - y - carry_in
+    else:
+        s = (lo if "_lo" in op else hi).astype(np.int64) + c.astype(
+            np.int64) + carry_in
+    flag = (s >> 32) & 1 if op.startswith(("add", "mad")) else (s < 0)
+    return s & 0xFFFFFFFF, np.where(op.endswith("_cc"), flag, cf)
+
+
+@pytest.mark.parametrize("op", CARRY_OPS)
+def test_carry_chain_instruction_follows_ptx(lib, op):
+    """Each chain instruction's host form, by PTX's carry-in and carry-out
+    rules: every 8-bit a, b with either flag (a byte spread to all four
+    bytes of the word, so that sums carry), and every triple of 32-bit
+    extremes."""
+    v = np.arange(256, dtype=np.uint64) * 0x01010101
+    ia, ib, f = np.meshgrid(np.arange(256), np.arange(256), [0, 1],
+                            indexing="ij")
+    a, b = v[ia.ravel()], v[ib.ravel()]
+    c, cf = v[(ia.ravel() * 3 + ib.ravel()) & 255], f.ravel().astype(np.uint64)
+    ext = np.array([0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE, 0xFFFFFFFF],
+                   dtype=np.uint64)
+    xa, xb, xc, xf = (g.ravel() for g in np.meshgrid(ext, ext, ext,
+                                                      np.array([0, 1], np.uint64),
+                                                      indexing="ij"))
+    a, b, c, cf = (np.concatenate(p) for p in ((a, xa), (b, xb), (c, xc),
+                                               (cf, xf)))
+    n = len(a)
+    a32, b32, c32 = (np.ascontiguousarray(t.astype(np.uint32)) for t in (a, b, c))
+    d = np.zeros(n, np.uint32)
+    flag = np.ascontiguousarray(cf.astype(np.uint32))
+    lib.h_carry_op(CARRY_OPS.index(op), _ptr(a32), _ptr(b32), _ptr(c32),
+                   _ptr(d), _ptr(flag), n)
+    want_d, want_f = _ptx(op, a, b, c, cf)
+    np.testing.assert_array_equal(d.astype(np.int64), want_d.astype(np.int64))
+    np.testing.assert_array_equal(flag.astype(np.int64), want_f.astype(np.int64))
+    if op.endswith("_cc"):
+        assert 0 < int(flag.sum()) < n  # the flag was written both ways
 
 
 def test_lean_add_equal_plain(lib):

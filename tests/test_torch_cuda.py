@@ -395,6 +395,22 @@ def test_p2tr_ladder_schedule_equals_plain(dev, schedule):
         assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("stage", ["finish", "tagged", "digits", "full"])
+def test_ladder_stage_probe_equals_plain(dev, stage):
+    """Kernel F cut after each stage (``probes/ladder_stages.cuh``) at the
+    product's schedule, bit-equal to its plain version (the doubling lane
+    included)."""
+    from vgen_tpu_torch.probes import profile_ladder as pl
+
+    wt = torch.from_numpy(tables.ladder_table_limbs(*fused.LADDER_WINDOW)
+                          .view(np.int32))
+    bx, by, tx, ty, _ = _step_inputs()
+    cpu = (bx, by, tx, ty, fused.batch_inverse_dx(bx, tx), wt)
+    got = pl.probe_ladder_stage(stage, *(a.to(dev) for a in cpu))
+    for g, w in zip(got, pl.ladder_stage_plain(stage, *cpu)):
+        assert torch.equal(g.cpu(), w)
+
+
 @pytest.mark.parametrize("geometry", [(64, 1), (16, 32), (16, 256), (32, 256),
                                       (8, 512), (64, 256), (1, 512)],
                          ids=lambda g: f"m{g[0]}g{g[1]}")

@@ -220,3 +220,12 @@ def test_ladder_sweep_exits_without_a_card(monkeypatch):
     with pytest.raises(SystemExit) as exc:
         sweep_ladder_window.main([])
     assert exc.value.code not in (0, None)
+
+
+def test_ladder_profile_exits_without_a_card(monkeypatch):
+    from vgen_tpu_torch.probes import profile_ladder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        profile_ladder.main([])
+    assert exc.value.code not in (0, None)

@@ -127,7 +127,7 @@ def _reference_mod_p(name, a, b):
     """Field results as Python ints mod p."""
     an, bn = _np(a), _np(b)
     x, y = _j16(an), _j16(bn)
-    if name in ("fe_mul", "ptx_mul"):
+    if name in ("fe_mul", "u64_mul"):
         return _ints_mod_p(jfield.mul_weak(x, y))
     if name in ("fe_sqr", "fe_sqr_dedicated"):
         return _ints_mod_p(jfield.square(x))
@@ -140,7 +140,7 @@ def _reference_mod_p(name, a, b):
     raise ValueError(name)
 
 
-FIELD_RESULTS = ("fe_mul", "ptx_mul", "fe_sqr", "fe_sqr_dedicated", "fold")
+FIELD_RESULTS = ("fe_mul", "u64_mul", "fe_sqr", "fe_sqr_dedicated", "fold")
 
 
 @pytest.mark.parametrize("name", [p for p in roofline.PRIMITIVES

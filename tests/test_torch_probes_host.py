@@ -6,9 +6,9 @@ every instance of ``probe_primitive``, ``probe_issue`` and
 ``probe_fieldmul`` (over R repetitions), ``probe_glv_stage``,
 ``probe_vtile`` (over its grid of blocks), ``probe_rows`` and
 ``probe_layout``.  On the host
-the PTX product of ``candidates.cuh`` is the production one; the card's
-PTX is held against the plain version by ``tests/test_torch_cuda.py`` and
-``chip_smoke.py``.  Exact: every value is an integer (or an f32 bit
+the carry chains of ``csrc/field.cuh`` keep their flag in a variable; the
+card's PTX is held against the plain version by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  Exact: every value is an integer (or an f32 bit
 pattern)."""
 
 import ctypes
@@ -20,23 +20,43 @@ import pytest
 import torch
 
 from test_torch_support import one_torch_thread  # noqa: F401 (autouse)
+from vgen_tpu_torch.crypto import secp256k1 as ec
 from vgen_tpu_torch.csrc import build
+from vgen_tpu_torch.ops import fused, u256
 from vgen_tpu_torch.probes import common
 from vgen_tpu_torch.probes import microbench_fieldmul as fm
 from vgen_tpu_torch.probes import microbench_layout as ml
 from vgen_tpu_torch.probes import microbench_rows as mr
 from vgen_tpu_torch.probes import microbench_vpu as vpu
 from vgen_tpu_torch.probes import profile_glv as pg
+from vgen_tpu_torch.probes import profile_ladder as pl
 from vgen_tpu_torch.probes import proto_vtile as pv
 from vgen_tpu_torch.probes import roofline
+from vgen_tpu_torch.scan import tables
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
                                 reason="no host C++ compiler (g++)")
 
 HARNESS = r"""
 #include "geometry_lanes.cuh"
+#include "ladder_stages.cuh"
 using namespace vg;
 using namespace vg::probe;
+// kernel F's lane cut after stage, at 8-bit unsigned digits (the probe's
+// instance on the card takes the product's 16-bit signed ones)
+template <int S>
+void ladder_stage(int s, const uint32_t* bx, const uint32_t* by,
+                  const uint32_t* tx, const uint32_t* ty, const uint32_t* inv,
+                  const uint32_t* table, uint32_t* X, uint32_t* Z, int32_t* ok,
+                  long B, long N) {
+  if constexpr (S < kNumLadderStages) {
+    if (s != S) return ladder_stage<S + 1>(s, bx, by, tx, ty, inv, table, X, Z,
+                                           ok, B, N);
+    for (long e = 0; e < N; e++)
+      ok[e] = ladder_stage_lane<S, 8, false>(bx, by, tx, ty, inv, table, X, Z,
+                                             B, N, e);
+  }
+}
 // per lane e < n of (8, n) limb-major a, b
 template <class Body>
 void lanes(const uint32_t* a, const uint32_t* b, uint32_t* out, long n,
@@ -180,6 +200,12 @@ void h_fieldmul(int m, const uint32_t* a, const uint32_t* b, uint32_t* out,
                 int n, int reps) {
   fieldmul<0>(m, a, b, out, n, reps);
 }
+void h_ladder_stage(int s, const uint32_t* bx, const uint32_t* by,
+                    const uint32_t* tx, const uint32_t* ty,
+                    const uint32_t* inv, const uint32_t* table, uint32_t* X,
+                    uint32_t* Z, int32_t* ok, int K, int B) {
+  ladder_stage<0>(s, bx, by, tx, ty, inv, table, X, Z, ok, B, (long)K * B);
+}
 }
 """
 
@@ -202,7 +228,8 @@ def lib(tmp_path_factory):
                        ("h_stage", [i, p, p, p, p, p, p, p, i, p, p, i, i]),
                        ("h_vtile", [i, i, p, p, p, p, p, p, p, i, p, p, i, i]),
                        ("h_rows", [i, i, p, p, i, i]),
-                       ("h_layout", [i, p, p, p, i, i])):
+                       ("h_layout", [i, p, p, p, i, i]),
+                       ("h_ladder_stage", [i] + [p] * 9 + [i, i])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, None
     return lib
@@ -356,3 +383,40 @@ def test_geometry_codes_follow_the_header():
                         ("Layout", ml.LAYOUTS)):
         assert list(table.values()) == list(range(len(enum(name)))), name
     assert f"kRowUnroll = {mr.UNROLL};" in src
+
+
+@pytest.fixture(scope="module")
+def ladder_args():
+    """Kernel F's inputs at K = 2, B = 64 on the 8-bit window table: window
+    0 based below B, so it holds the doubling lane (dx == 0)."""
+    K, B = 2, 64
+    tx, ty = tables.ig_table(B, "cpu")
+    pts = [ec.scalar_mult(s) for s in (B // 2 + 1, 0xC0FFEE123456789)]
+    bx = u256.as_i32(u256.from_ints([p[0] for p in pts]).T.copy())
+    by = u256.as_i32(u256.from_ints([p[1] for p in pts]).T.copy())
+    inv = fused.batch_inverse_dx(bx, tx)
+    return bx, by, tx, ty, inv, tables.window_table("cpu")
+
+
+@pytest.mark.parametrize("stage", list(pl.STAGES))
+def test_ladder_stage_body_equals_plain(lib, ladder_args, stage):
+    """Kernel F's lane cut after each stage (``ladder_stages.cuh``), the
+    codes of ``profile_ladder.STAGES`` in the enum's order, and the
+    schedule the card's instance takes (``p2tr_lanes.cuh``) the product's."""
+    src = (build.PROBES / "ladder_stages.cuh").read_text()
+    body = src.split("enum LadderStage {")[1].split("}")[0]
+    assert len(body.split(",")) - 1 == len(pl.STAGES)
+    lanes = (build.CSRC / "p2tr_lanes.cuh").read_text()
+    bits, signed = fused.LADDER_WINDOW
+    assert f"kLadderBits = {bits};" in lanes
+    assert f"kLadderSigned = {str(signed).lower()};" in lanes
+    bx, tx = ladder_args[0], ladder_args[2]
+    K, B = bx.shape[0], tx.shape[1]
+    X = torch.empty((8, K * B), dtype=torch.int32)
+    Z, ok = torch.empty_like(X), torch.empty((K * B,), dtype=torch.int32)
+    lib.h_ladder_stage(pl.STAGES[stage], *(_ptr(t) for t in ladder_args),
+                       _ptr(X), _ptr(Z), _ptr(ok), K, B)
+    want = pl.probe_ladder_stage(stage, *ladder_args)
+    for got, w in zip((X, Z, ok), want):
+        assert torch.equal(got, w)
+    assert 0 < int(ok.sum()) < K * B

@@ -191,6 +191,8 @@ def load(unit: str = "kernels") -> ctypes.CDLL:
                 "vgen_probe_dfa_blocks_per_sm": [i, i],
                 "vgen_probe_inv_stage": [i, p, p, p, p, p, i, i, i, i, p],
                 "vgen_probe_inv_lane": [p, p, i, p],
+                "vgen_probe_ladder_stage": [i, p, p, p, p, p, p, p, p, p, i,
+                                            i, p],
             },
         }
         for u in group:

@@ -85,7 +85,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = vg::kLadderThreads;  // kernels F and H
 
 template <bool kFinish, int kBits, bool kSigned>
 __global__ void __launch_bounds__(kThreads)

@@ -120,6 +120,13 @@ struct LadderWindows {
   static constexpr int kEntries = kSigned ? (1 << (kBits - 1)) + 1 : 1 << kBits;
 };
 
+// Kernel F's block (p2tr.cu ladder_kernel) and the product's schedule
+// (vgen_tpu_torch/ops/fused.py LADDER_WINDOW), which the probe unit's cut
+// of F (probes/ladder_stages.cuh) runs
+constexpr int kLadderThreads = 256;
+constexpr int kLadderBits = 16;
+constexpr bool kLadderSigned = true;
+
 // The next digit of t, whose low kBits bits it consumes (t shifts right by
 // kBits, in registers): returns |d| and sets neg for a negative digit;
 // carry is the signed recoding's (always 0 for unsigned digits).
@@ -138,6 +145,33 @@ VG_FN uint32_t ladder_digit(uint32_t t[8], uint32_t& carry, bool& neg) {
     }
   }
   return d;
+}
+
+// (px, py) = table[w][digit], the entry of window w for |digit|
+template <int kBits, bool kSigned>
+VG_FN void ladder_entry(uint32_t px[8], uint32_t py[8], const uint32_t* table,
+                        int w, uint32_t digit) {
+  const uint32_t* p =
+      table + ((long)w * LadderWindows<kBits, kSigned>::kEntries + digit) * 16;
+#ifdef __CUDACC__
+  // the entry's 64 bytes as four 16-byte loads through the read-only path
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; i++) {
+    const uint4 v = __ldg(q + i);
+    uint32_t* dst = i < 2 ? px + 4 * i : py + 4 * (i - 2);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+#else
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    px[i] = p[i];
+    py[i] = p[8 + i];
+  }
+#endif
 }
 
 // The ladder of one lane: from the internal key (x, y), its even-Y form P,
@@ -170,26 +204,7 @@ VG_FN bool taptweak_ladder(uint32_t X[8], uint32_t Z[8], const uint32_t x[8],
     bool neg;
     const uint32_t digit = ladder_digit<kBits, kSigned>(t, carry, neg);
     if (digit == 0u) continue;
-    const uint32_t* p = table + ((long)w * Win::kEntries + digit) * 16;
-#ifdef __CUDACC__
-    // the entry's 64 bytes as four 16-byte loads through the read-only path
-    const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-    for (int i = 0; i < 4; i++) {
-      const uint4 v = __ldg(q + i);
-      uint32_t* dst = i < 2 ? px + 4 * i : py + 4 * (i - 2);
-      dst[0] = v.x;
-      dst[1] = v.y;
-      dst[2] = v.z;
-      dst[3] = v.w;
-    }
-#else
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-      px[i] = p[i];
-      py[i] = p[8 + i];
-    }
-#endif
+    ladder_entry<kBits, kSigned>(px, py, table, w, digit);
     if (kSigned && neg) fe_neg(py, py);
     if (fe_is_zero(Z)) {  // the accumulator is the point at infinity
       fe_copy(X, px);

@@ -1,11 +1,10 @@
-// Field-multiply forms the product does not use yet, timed by the probes
+// Field-multiply forms the product does not use, timed by the probes
 // beside the production ones (csrc/field.cuh): the squaring as a full
 // multiply (the product's squaring before its dedicated one), the
-// 512-bit product written in PTX carry chains, and the product split into
-// column sums with no carry and a separate carry pass (the TPU's
-// "nocarry" form), and the whole multiply in that form.  Like the headers
-// in csrc/ this compiles as plain C++ too; there the PTX product is the
-// production one.
+// multiply with 64-bit accumulators (the product's before its carry
+// chains), the product split into column sums with no carry and a
+// separate carry pass (the TPU's "nocarry" form), and the whole multiply
+// in that form.  Like the headers in csrc/ this compiles as plain C++ too.
 #pragma once
 
 #include "field.cuh"
@@ -17,50 +16,78 @@ namespace vg {
 // that the probes time both.
 VG_FN void fe_sqr_by_mul(uint32_t r[8], const uint32_t a[8]) { fe_mul(r, a, a); }
 
-// t = a * b in 16 limbs by PTX carry chains: row i adds a[i] * b into
-// t[i..i+8] as a chain of mad.lo.cc over the low halves (its carry into
-// t[i + 8]) and one of mad.hi.cc over the high halves, one limb up.  The
-// rows' partial sums stay below 2^(32 (i + 9)), so the high chain never
-// carries out.
-VG_FN void fe_mul_wide_ptx(uint32_t t[16], const uint32_t a[8], const uint32_t b[8]) {
-#ifdef __CUDACC__
+// r = a * b mod p with every partial product and carry in a 64-bit
+// accumulator: one row of eight multiply-adds per limb of a, then the
+// fold lo + hi * 977 + (hi << 32) and twice more what carries out, then
+// the conditional subtract of p.  r may alias a or b.
+VG_FN void fe_mul_u64(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
+  uint32_t t[16], s[8], v[8];
 #pragma unroll
   for (int i = 0; i < 16; i++) t[i] = 0u;
 #pragma unroll
   for (int i = 0; i < 8; i++) {
-    asm("mad.lo.cc.u32 %0, %9, %10, %0;\n\t"
-        "madc.lo.cc.u32 %1, %9, %11, %1;\n\t"
-        "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
-        "madc.lo.cc.u32 %3, %9, %13, %3;\n\t"
-        "madc.lo.cc.u32 %4, %9, %14, %4;\n\t"
-        "madc.lo.cc.u32 %5, %9, %15, %5;\n\t"
-        "madc.lo.cc.u32 %6, %9, %16, %6;\n\t"
-        "madc.lo.cc.u32 %7, %9, %17, %7;\n\t"
-        "addc.u32 %8, %8, 0;\n\t"
-        "mad.hi.cc.u32 %1, %9, %10, %1;\n\t"
-        "madc.hi.cc.u32 %2, %9, %11, %2;\n\t"
-        "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
-        "madc.hi.cc.u32 %4, %9, %13, %4;\n\t"
-        "madc.hi.cc.u32 %5, %9, %14, %5;\n\t"
-        "madc.hi.cc.u32 %6, %9, %15, %6;\n\t"
-        "madc.hi.cc.u32 %7, %9, %16, %7;\n\t"
-        "madc.hi.u32 %8, %9, %17, %8;"
-        : "+r"(t[i]), "+r"(t[i + 1]), "+r"(t[i + 2]), "+r"(t[i + 3]),
-          "+r"(t[i + 4]), "+r"(t[i + 5]), "+r"(t[i + 6]), "+r"(t[i + 7]),
-          "+r"(t[i + 8])
-        : "r"(a[i]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]),
-          "r"(b[5]), "r"(b[6]), "r"(b[7]));
+    u64 c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      c += (u64)a[i] * b[j] + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + 8] = (uint32_t)c;
   }
-#else
-  fe_mul_wide(t, a, b);
-#endif
-}
-
-// r = a * b mod p: the PTX product, then the production fold.
-VG_FN void fe_mul_ptx(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-  uint32_t t[16];
-  fe_mul_wide_ptx(t, a, b);
-  fe_reduce512(r, t);
+  // fold 1: lo + hi * 977 + (hi << 32); each step < 2^43
+  u64 c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    c += (u64)t[i] + (u64)t[8 + i] * 977u;
+    if (i > 0) c += t[7 + i];
+    s[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  const u64 top = c + t[15];  // bits 256.., < 2^34
+  // fold 2: top * (2^32 + 977)
+  const u64 t977 = top * 977u;
+  c = (u64)s[0] + (uint32_t)t977;
+  s[0] = (uint32_t)c;
+  c = (c >> 32) + (u64)s[1] + (t977 >> 32) + (uint32_t)top;
+  s[1] = (uint32_t)c;
+  c = (c >> 32) + (u64)s[2] + (top >> 32);
+  s[2] = (uint32_t)c;
+  c >>= 32;
+#pragma unroll
+  for (int i = 3; i < 8; i++) {
+    c += s[i];
+    s[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  // fold 3: a carry out here leaves a small low part, so this cannot carry
+  const uint32_t c3 = (uint32_t)c;
+  c = (u64)s[0] + 977u * c3;
+  s[0] = (uint32_t)c;
+  c = (c >> 32) + (u64)s[1] + c3;
+  s[1] = (uint32_t)c;
+  c >>= 32;
+#pragma unroll
+  for (int i = 2; i < 8; i++) {
+    c += s[i];
+    s[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  // s >= p exactly when s + (2^32 + 977) carries out of 2^256
+  c = (u64)s[0] + 977u;
+  v[0] = (uint32_t)c;
+  c = (c >> 32) + (u64)s[1] + 1u;
+  v[1] = (uint32_t)c;
+  c >>= 32;
+#pragma unroll
+  for (int i = 2; i < 8; i++) {
+    c += s[i];
+    v[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  const uint32_t m = 0u - (uint32_t)c;
+#pragma unroll
+  for (int i = 0; i < 8; i++) r[i] = (v[i] & m) | (s[i] & ~m);
 }
 
 // Column sums of a * b with no carry between columns: the low half of

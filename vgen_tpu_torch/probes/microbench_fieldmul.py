@@ -7,10 +7,12 @@ The counterpart of ``scripts/microbench_fieldmul.py`` (its ``make(mode)``
 :71, ``pallas_call`` :120), which split the TPU's 16-bit-limb multiply.
 Each instance runs R chained repetitions of one part, fed back as
 ``probe_lanes.cuh`` describes: the production multiply's 8x8 product
-``fe_mul_wide`` and its fold ``fe_reduce512``; the candidates of
-``candidates.cuh``: column sums with no carry, their carry pass and a
-product in PTX carry chains (``mad.lo.cc``/``madc.hi.cc``); and SHA-256
-of a 33-byte key and RIPEMD-160 of a digest.  The whole ``fe_mul``, the
+``fe_mul_wide`` and its fold ``fe_reduce512`` (both in 32-bit carry
+chains, ``mad.lo.cc``/``madc.hi.cc``); the candidates of
+``candidates.cuh``: column sums with no carry, their carry pass and the
+whole multiply with 64-bit accumulators (``fe_mul_u64``, the product's
+before its carry chains); and SHA-256 of a 33-byte key and RIPEMD-160 of
+a digest.  The whole ``fe_mul``, the
 dedicated squaring and hash160 are ``probe_primitive`` instances
 (``roofline.py``), which the tool times beside them.  At N = 524288 lanes
 the tool reports SM clocks per lane (at the SM clock sampled while it
@@ -38,7 +40,7 @@ MODES = {
     "nocarry": (1, bm.FE_MUL_COLS),
     "fold": (2, bm.FE_FOLD),
     "carry": (3, bm.FE_CARRY_COLS),
-    "ptx_mul": (4, bm.FE_MUL),
+    "u64_mul": (4, bm.FE_MUL),
     "sha256": (5, bm.SHA256),
     "ripemd160": (6, bm.RIPEMD160),
 }
@@ -71,7 +73,7 @@ def carry_cols(cols):
 def fieldmul_out(mode: str, a: torch.Tensor, b: torch.Tensor):
     """The output words of one repetition of ``mode`` (before the fold):
     a, b (8, N) int64."""
-    if mode == "ptx_mul":
+    if mode == "u64_mul":
         return list(field.mul(a, b))
     if mode == "mul_wide":
         return list(field.mul_wide(a, b))

@@ -22,7 +22,6 @@
 #ifdef __CUDACC__
 #define VG_NO_UNROLL _Pragma("unroll 1")
 #define VG_FUNNEL_L(lo, hi, n) __funnelshift_l(lo, hi, n)
-#define VG_MULHI(x, y) __umulhi(x, y)
 #define VG_FMAF(x, y, z) __fmaf_rn(x, y, z)
 #define VG_AS_UINT(f) __float_as_uint(f)
 #else
@@ -31,7 +30,6 @@
 #define VG_NO_UNROLL
 #define VG_FUNNEL_L(lo, hi, n) \
   ((uint32_t)(((((vg::u64)(hi)) << 32) | (uint32_t)(lo)) << ((n) & 31) >> 32))
-#define VG_MULHI(x, y) ((uint32_t)(((vg::u64)(x) * (y)) >> 32))
 #define VG_FMAF(x, y, z) std::fmaf(x, y, z)
 inline uint32_t VG_AS_UINT(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 #endif
@@ -53,7 +51,7 @@ enum IssueOp {
 // probe_fieldmul instances (microbench_fieldmul.py MODES); the whole
 // fe_mul, the dedicated squaring and hash160 are probe_primitive's
 enum FieldMulMode {
-  kFmMulWide, kFmNoCarry, kFmFold, kFmCarry, kFmPtxMul, kFmSha256,
+  kFmMulWide, kFmNoCarry, kFmFold, kFmCarry, kFmU64Mul, kFmSha256,
   kFmRipemd160, kNumFieldMulModes
 };
 
@@ -170,7 +168,7 @@ VG_FN uint32_t issue_step(uint32_t x, uint32_t y, uint32_t k) {
   if constexpr (kStep == kLop3) return (x | y) ^ k;
   if constexpr (kStep == kShf) return VG_FUNNEL_L(y, x, k);
   if constexpr (kStep == kImad) return x * y + k;
-  if constexpr (kStep == kImadHi) return VG_MULHI(x, y) + k;
+  if constexpr (kStep == kImadHi) return mul_hi(x, y) + k;
   return 0u;
 }
 
@@ -269,9 +267,9 @@ VG_FN void issue_lane(uint32_t r[8], const uint32_t a[8], const uint32_t b[8],
 
 template <int kMode>
 VG_FN void fieldmul_rep(uint32_t a[8], uint32_t b[8]) {
-  if constexpr (kMode == kFmPtxMul) {
+  if constexpr (kMode == kFmU64Mul) {
     uint32_t out[8];
-    fe_mul_ptx(out, a, b);
+    fe_mul_u64(out, a, b);
     feedback<8>(a, b, out);
   } else if constexpr (kMode == kFmMulWide) {
     uint32_t out[16];

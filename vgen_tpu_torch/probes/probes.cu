@@ -1,4 +1,4 @@
-// The nine probe kernels, for the measurement tools of
+// The ten probe kernels, for the measurement tools of
 // vgen_tpu_torch/probes (never launched by a scan).  They replace the
 // TPU probes of scripts/:
 //
@@ -30,7 +30,9 @@
 //   checksum or a per-thread symbol array, in either table form, for
 //   profile_p2tr_match.py, which also launches the product's walk under a
 //   minimum of 4 blocks per SM (probe_p2tr_match_bounded) and the
-//   per-lane kernel I (probe_p2tr_match_lane, the per-lane grid).
+//   per-lane kernel I (probe_p2tr_match_lane, the per-lane grid);
+// - probe_ladder_stage<kStage>: no TPU probe; kernel F's lane at the
+//   product's window schedule cut after a stage, for profile_ladder.py.
 //
 // The TPU probes timed (16, 8, 512) VMEM tiles of 16-bit limbs and
 // one-hot matmuls; here a lane is one thread on 32-bit limbs, the layout
@@ -49,6 +51,7 @@
 
 #include "geometry_lanes.cuh"
 #include "inv_stages.cuh"
+#include "ladder_stages.cuh"
 #include "match_kernels.cuh"
 #include "p2tr_match_lanes.cuh"
 #include "single_key_lanes.cuh"
@@ -108,6 +111,23 @@ __global__ void probe_fieldmul(const uint32_t* a_in, const uint32_t* b_in,
   fe_load(b, b_in, n, e);
   fieldmul_lane<kMode>(r, a, b, reps);
   fe_store(out, n, e, r);
+}
+
+// kernel F's block and the product's window schedule (p2tr_lanes.cuh)
+template <int kStage>
+__global__ void __launch_bounds__(kLadderThreads)
+    probe_ladder_stage(const uint32_t* __restrict__ bx,
+                       const uint32_t* __restrict__ by,
+                       const uint32_t* __restrict__ tx,
+                       const uint32_t* __restrict__ ty,
+                       const uint32_t* __restrict__ inv,
+                       const uint32_t* __restrict__ table,
+                       uint32_t* __restrict__ X, uint32_t* __restrict__ Z,
+                       int32_t* __restrict__ ok, long B, long N) {
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N) return;
+  ok[e] = ladder_stage_lane<kStage, kLadderBits, kLadderSigned>(
+      bx, by, tx, ty, inv, table, X, Z, B, N, e);
 }
 
 // kernel B's staging of the interval table (at most 8 slots)
@@ -681,6 +701,25 @@ int launch_inv_stage(int stage, const void* bx, const void* tx, void* leaf,
   });
 }
 
+// Kernel F's contract (csrc/p2tr.cu vgen_p2tr_ladder) at the product's
+// schedule, cut after stage (ladder_stages.cuh LadderStage).
+int launch_ladder_stage(int stage, const void* bx, const void* by,
+                        const void* tx, const void* ty, const void* inv,
+                        const void* table, void* X, void* Z, void* ok, int K,
+                        int B, void* stream) {
+  const long N = (long)K * B;
+  if (N == 0) return 0;
+  using Rows = const uint32_t*;
+  return dispatch<0, kNumLadderStages>(stage, [&](auto s) {
+    probe_ladder_stage<decltype(s)::value>
+        <<<(unsigned)((N + kLadderThreads - 1) / kLadderThreads),
+           kLadderThreads, 0, (cudaStream_t)stream>>>(
+            (Rows)bx, (Rows)by, (Rows)tx, (Rows)ty, (Rows)inv, (Rows)table,
+            (uint32_t*)X, (uint32_t*)Z, (int32_t*)ok, (long)B, N);
+    return (int)cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 // C entry points.  probe_primitive, probe_issue, probe_fieldmul: a, b, out
@@ -769,6 +808,14 @@ int vgen_probe_inv_stage(int stage, const void* bx, const void* tx,
                          int M, int G, void* stream) {
   return launch_inv_stage(stage, bx, tx, leaf, out, scratch, K, B, M, G,
                           stream);
+}
+
+int vgen_probe_ladder_stage(int stage, const void* bx, const void* by,
+                            const void* tx, const void* ty, const void* inv,
+                            const void* table, void* X, void* Z, void* ok,
+                            int K, int B, void* stream) {
+  return launch_ladder_stage(stage, bx, by, tx, ty, inv, table, X, Z, ok, K,
+                             B, stream);
 }
 
 // One thread inverts a (8, 1) reps times in a row -> out (8, 1).
